@@ -5,8 +5,10 @@ JAX package `arroy_tpu` (the reference this package is held against):
 the seven distance metrics, the level-synchronous two-means forest
 build, the exact serving engine with its two hand-written CUDA kernels
 (the fused score + block select, and the binary-quantized popcount
-matrix), multi-index databases with MVCC snapshots and the same on-disk
-format.  It imports `torch` and never `jax`.
+matrix), the forest engine's leaf-probe search with the third (the
+gather-score of the selected blocks), multi-index databases with MVCC
+snapshots and the same on-disk format.  It imports `torch` and never
+`jax`.
 
 `Database(path=None, device="cuda")` is the one place a device is
 chosen; `Writer`, `Reader` and the device index take it from there::

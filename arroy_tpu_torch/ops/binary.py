@@ -30,6 +30,11 @@ def padded_dim(dims: int) -> int:
     return ((dims + PAD_BITS - 1) // PAD_BITS) * PAD_BITS
 
 
+def n_words(dims: int) -> int:
+    """Number of 32-bit words of a packed `dims`-dimensional BQ vector."""
+    return padded_dim(dims) // WORD_BITS
+
+
 # ---------------------------------------------------------------------------
 # host-side pack / unpack (numpy) — identical to arroy_tpu.ops.binary
 # ---------------------------------------------------------------------------

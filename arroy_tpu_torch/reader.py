@@ -4,8 +4,10 @@ Counterpart of `arroy_tpu/reader.py`.  `Reader.open` validates metadata,
 distance and pending-update state (reference: src/reader.rs:140-177);
 `searcher()` returns a bound serving handle over the database's device.
 The exact engine serves every built-in metric (``engine="auto"`` picks
-it, as in the JAX package).  The forest traversal — ``engine="forest"``
-and the `nns(...)` query builder — is not ported yet and raises
+it, as in the JAX package).  ``engine="forest"`` serves the leaf-probe
+engine (``traversal="probe"``, which ``"auto"`` resolves to at 262,144
+items and above); the best-first traversal — ``traversal="xla"`` and the
+`nns(...)` query builder — is not ported yet and raises
 `NotImplementedError` (ROADMAP queue 1: forest traversal).
 """
 
@@ -20,15 +22,16 @@ import torch
 from .errors import InvalidVecDimension, MissingMetadata, NeedBuild, UnmatchingDistance
 from .metrics import ALL_METRICS, Metric, resolve_metric
 from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
-from .search import exact_batch, exact_engine_supported, make_exact_fn
+from .search import (
+    _TRAVERSAL_TODO,
+    exact_batch,
+    exact_engine_supported,
+    make_exact_fn,
+    make_search_fn,
+)
 from .store.database import Database, IndexState
 from .utils.itemset import ItemSet
 from .version import Version
-
-_TRAVERSAL_TODO = (
-    "the forest traversal is not ported yet (ROADMAP queue 1: forest "
-    "traversal and nns()); use searcher(engine='exact')"
-)
 
 
 @dataclass
@@ -48,17 +51,46 @@ class Stats:
 
 
 class QueryBuilder:
-    """Reference: src/reader.rs:26-124.  Queries run through the forest
-    traversal, which is not ported yet."""
+    """Reference: src/reader.rs:26-124.  Its `by_*` queries run through
+    the forest traversal, which is not ported yet; `Reader.searcher`
+    uses it to resolve the candidate budget."""
 
     def __init__(self, reader: "Reader", count: int):
         self._reader = reader
         self._count = int(count)
+        self._search_k: Optional[int] = None
+        self._oversampling: Optional[int] = None
         self._candidates: Optional[ItemSet] = None
+
+    def search_k(self, search_k: int) -> "QueryBuilder":
+        if int(search_k) <= 0:
+            raise ValueError("search_k must be non-zero")
+        self._search_k = int(search_k)
+        return self
+
+    def oversampling(self, oversampling: int) -> "QueryBuilder":
+        if int(oversampling) <= 0:
+            raise ValueError("oversampling must be non-zero")
+        self._oversampling = int(oversampling)
+        return self
 
     def candidates(self, candidates) -> "QueryBuilder":
         self._candidates = candidates if isinstance(candidates, ItemSet) else ItemSet(candidates)
         return self
+
+    def _effective_search_k(self) -> int:
+        # reference: src/reader.rs:330-335
+        search_k = (
+            self._search_k
+            if self._search_k is not None
+            else self._count * max(self._reader.n_trees(), 1)
+        )
+        mult = (
+            self._oversampling
+            if self._oversampling is not None
+            else self._reader.metric.default_oversampling
+        )
+        return search_k * mult
 
     def by_item(self, item: int):
         raise NotImplementedError(_TRAVERSAL_TODO)
@@ -84,31 +116,61 @@ def _as_lists(ids: np.ndarray, dists: np.ndarray) -> list[list[tuple[int, float]
 class Searcher:
     """Bound serving handle over one snapshot, on the database's device.
 
-    ``engine="exact"`` (and ``"auto"``, which resolves to it for every
-    built-in metric) scores every item; ``precision`` picks the mode (see
-    `search.make_exact_fn`).  ``route`` names the stage-1 path the
-    searcher took, e.g. "fused_select" or "bq_matrix".
+    ``engine`` selects the whole search strategy:
+
+    - ``"exact"`` (and ``"auto"``, which resolves to it for every
+      built-in metric) scores every item; ``precision`` picks the mode
+      (see `search.make_exact_fn`).
+    - ``"forest"`` serves the `search_k` candidate budget through the
+      forest (`search.make_search_fn`): the leaf-probe engine
+      (``traversal="probe"``, or ``"auto"`` at 262,144+ items; tuned by
+      ``probe_trees``, ``probe_block`` and ``probe_dtype``) or, when the
+      filter pool fits the budget, an exact re-score of the whole pool
+      (``rescore`` picks the per-candidate or the matmul re-score).
+
+    ``route`` names the path the searcher took, e.g. "fused_select",
+    "bq_matrix" or "probe".
     """
 
-    def __init__(self, reader: "Reader", count: int, candidates=None,
-                 engine: str = "auto", precision: str = "auto"):
+    def __init__(
+        self,
+        reader: "Reader",
+        qb: QueryBuilder,
+        rescore: str = "auto",
+        traversal: str = "auto",
+        engine: str = "auto",
+        precision: str = "auto",
+        probe_trees="auto",
+        probe_block="auto",
+        probe_dtype="auto",
+    ):
         dev = reader._device()
         if engine == "auto":
             engine = "exact" if exact_engine_supported(dev.metric) else "forest"
-        if engine != "exact":
-            raise NotImplementedError(_TRAVERSAL_TODO)
         filter_slots = None
-        if candidates is not None:
-            cand = candidates if isinstance(candidates, ItemSet) else ItemSet(candidates)
-            inter = cand.intersection(ItemSet.from_sorted(reader._state.metadata.items.ids))
+        if qb._candidates is not None:
+            inter = qb._candidates.intersection(
+                ItemSet.from_sorted(reader._state.metadata.items.ids)
+            )
             filter_slots = (
                 reader._state.store.slots_of(inter.ids) if len(inter) else np.empty(0, np.int64)
             )
         self._reader = reader
-        self._count = int(count)
+        self._count = qb._count
         self._dev = dev
         self.engine = engine
-        self.device_fn, self.route = make_exact_fn(dev, count, filter_slots, precision=precision)
+        if engine == "exact":
+            self.device_fn, self.route = make_exact_fn(
+                dev, qb._count, filter_slots, precision=precision
+            )
+        elif engine == "forest":
+            self.device_fn, self.route = make_search_fn(
+                dev, qb._count, qb._effective_search_k(), filter_slots,
+                rescore=rescore, traversal=traversal, state=reader._state,
+                probe_trees=probe_trees, probe_block=probe_block, probe_dtype=probe_dtype,
+            )
+        else:
+            raise ValueError(f"unknown engine {engine!r}")
 
     def prepare_queries(self, vectors: np.ndarray):
         """Upload a query matrix once; returns device (qv, qn, qe, qf)."""
@@ -201,15 +263,40 @@ class Reader:
     def searcher(
         self,
         count: int,
+        search_k: int | None = None,
+        oversampling: int | None = None,
         candidates=None,
+        rescore: str = "auto",
+        traversal: str = "auto",
         engine: str = "auto",
         precision: str = "auto",
+        multipop="auto",
+        probe_trees="auto",
+        probe_block="auto",
+        probe_dtype="auto",
     ) -> Searcher:
         """A bound serving handle: `device_fn(qv, qn, qe, qf)` takes and
-        returns tensors on the database's device."""
+        returns tensors on the database's device (see `Searcher`).
+
+        ``search_k`` and ``oversampling`` set the forest engine's
+        candidate budget as `nns(...)` does (reference:
+        src/reader.rs:330-335).  ``multipop`` is the best-first
+        traversal's knob; it is accepted, as in the JAX package, and has
+        no effect until the traversal is ported."""
         if self.metric not in ALL_METRICS:
             raise NotImplementedError(_TRAVERSAL_TODO)
-        return Searcher(self, count, candidates=candidates, engine=engine, precision=precision)
+        qb = QueryBuilder(self, count)
+        if search_k is not None:
+            qb.search_k(search_k)
+        if oversampling is not None:
+            qb.oversampling(oversampling)
+        if candidates is not None:
+            qb.candidates(candidates)
+        return Searcher(
+            self, qb, rescore=rescore, traversal=traversal, engine=engine,
+            precision=precision, probe_trees=probe_trees, probe_block=probe_block,
+            probe_dtype=probe_dtype,
+        )
 
     # -- exact search oracle --------------------------------------------
     def exact_by_vectors(self, vectors, count: int, fast: bool = False):

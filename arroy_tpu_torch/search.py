@@ -1,7 +1,12 @@
-"""The exact (brute-force) serving engine.
+"""The serving engines: exact (brute force) and the forest dispatch.
 
-Counterpart of the exact half of `arroy_tpu/search.py` (`make_exact_fn`,
-`exact_batch` and their stage functions).  Every mode scores every live
+Counterpart of `arroy_tpu/search.py`: `make_exact_fn`, `exact_batch`
+and their stage functions, and of the forest engine `make_search_fn`
+up to its probe dispatch (the empty index, the filter-pool shortcut with
+its re-score family, and the leaf-probe engine of `probe.py`); the
+best-first traversal raises `NotImplementedError`.
+
+The exact engine's modes score every live
 item of the corpus and returns the top-k under the reference's exact
 distance formulas:
 
@@ -25,6 +30,8 @@ distances is unspecified, as with any top-k on the GPU.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -378,6 +385,193 @@ def make_exact_fn(
         )
 
     return unfused_fn, "unfused"
+
+
+# ---------------------------------------------------------------------------
+# the forest engine: re-score of a candidate set, and the probe dispatch
+# ---------------------------------------------------------------------------
+
+#: candidate-axis chunk for the re-score gather ([B, chunk, d] temporary)
+_RESCORE_CHUNK = 512
+#: corpora larger than this skip the matmul re-score (the [B, M] dot
+#: matrix would dominate memory)
+_MATMUL_RESCORE_MAX_ITEMS = 300_000
+#: full-width candidate-mask budget for the chunked matmul re-score
+#: (1 byte per item per query)
+_RESCORE_MASK_BYTES = 512 << 20
+#: [B, M] f32 budget above which the re-score must stream chunks
+_RESCORE_MATRIX_BYTES = 1 << 30
+#: forest-engine traversal="auto" serves the leaf-probe engine at and
+#: above this corpus size (the JAX package's policy, kept as it is)
+_PROBE_MIN_ITEMS = 262_144
+
+_TRAVERSAL_TODO = (
+    "the forest traversal is not ported yet (ROADMAP queue 1: forest "
+    "traversal and nns()); use searcher(engine='exact'), or "
+    "engine='forest' with traversal='probe'"
+)
+
+
+def _rescore_batch(metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, qn, qe):
+    """Exact re-score of [B, cap] candidate slots (-1 pad) → top-k
+    (`_rescore_impl`): valid candidates sorted by ascending id and
+    deduplicated (the reference's sort_unstable + dedup,
+    src/reader.rs:378-379), distances in chunks of `_RESCORE_CHUNK`."""
+    b, cap = cand.shape
+    valid0 = cand >= 0
+    ids = slot_to_id[torch.clamp(cand, min=0)]
+    # valid-first is the primary key, so that a genuine id of u32::MAX
+    # cannot interleave with invalid padding and dodge the duplicate check
+    key = ids + (~valid0).to(torch.int64) * (1 << 32)
+    order = torch.argsort(key, dim=1, stable=True)
+    ids_s = torch.gather(ids, 1, order)
+    valid_s = torch.gather(valid0, 1, order)
+    slots_s = torch.clamp(torch.gather(cand, 1, order), min=0)
+    dup = torch.zeros_like(valid_s)
+    dup[:, 1:] = (ids_s[:, 1:] == ids_s[:, :-1]) & valid_s[:, :-1]
+    invalid = ~valid_s | dup
+    d = torch.cat(
+        [
+            metric.built_distance(
+                qv[:, None, :], qn[:, None], qe[:, None],
+                rows[sl], norms[sl], extras[sl],
+            )
+            for sl in torch.split(slots_s, _RESCORE_CHUNK, dim=1)
+        ],
+        dim=1,
+    )
+    return _finish(metric, dims, k, torch.where(invalid, _INF, d), slot_to_id, slots_s)
+
+
+def _rescore_matmul(metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, qn, qe):
+    """Matmul re-score (`_rescore_matmul_impl`): one [B, d] x [d, M]
+    product plus a [B, M] candidate mask, so duplicates collapse without
+    a sort.  Ranking-equivalent to the exact re-score; euclidean distances
+    carry matmul-cancellation noise near zero.  f32 dot-decomposable
+    metrics only (`rescore_mode` sends the others to `_rescore_batch`)."""
+    b = cand.shape[0]
+    m = rows.shape[0]
+    valid0 = cand >= 0
+    mask = torch.zeros((b, m), dtype=torch.bool, device=rows.device)
+    qrow = torch.arange(b, device=rows.device)[:, None].expand_as(cand)
+    mask[qrow[valid0], cand[valid0].long()] = True
+    dots = _f32_matmul(qv, rows)
+    if metric.name == "euclidean":
+        q2 = torch.sum(qv * qv, dim=1)
+        d = torch.clamp(_row_sq(rows)[None, :] - 2.0 * dots + q2[:, None], min=0.0)
+    elif metric.name == "cosine":
+        pnqn = norms[None, :] * qn[:, None]
+        ok = pnqn > _F32_EPS
+        cos = torch.clamp(dots / torch.where(ok, pnqn, 1.0), -1.0, 1.0)
+        d = torch.where(ok, (1.0 - cos) / 2.0, 0.0)
+    else:  # dot-product
+        d = -dots
+    return _finish(metric, dims, k, torch.where(mask, d, _INF), slot_to_id)
+
+
+def rescore_mode(metric, b: int, cap: int, m: int, want: str = "auto") -> str:
+    if want == "exact" or metric.binary or metric.name == "manhattan":
+        return "exact"
+    if want == "matmul":
+        return "matmul"
+    if b * cap < m:
+        # candidate volume below the corpus: the per-candidate gather
+        # moves fewer bytes than streaming every item through a matmul
+        return "exact"
+    if b * m * 4 <= _RESCORE_MATRIX_BYTES and m <= _MATMUL_RESCORE_MAX_ITEMS:
+        return "matmul"
+    if b * m <= _RESCORE_MASK_BYTES:
+        # past the [B, M] matrix budget: the traversal streams the matrix
+        # in chunks (not ported yet; the filter shortcut re-scores exactly)
+        return "matmul_scan"
+    return "exact"
+
+
+def traversal_mode(idx: DeviceIndex, want: str = "auto") -> str:
+    """Resolve the forest engine's traversal: the best-first pop walk
+    ("xla") or the leaf-probe engine ("probe", `probe.py`).
+
+    ``ARROY_TRAVERSAL=probe|xla`` resolves ``auto`` only — an explicit
+    argument always wins.  ``auto`` serves the probe engine at and above
+    `_PROBE_MIN_ITEMS` items."""
+    from . import probe as _probe
+
+    want = (want or "auto").lower()
+    if want == "auto":
+        want = os.environ.get("ARROY_TRAVERSAL", "auto").lower()
+    if want == "auto" and idx.n_items >= _PROBE_MIN_ITEMS:
+        want = "probe"
+    if want == "probe" and _probe.supports(idx.metric):
+        return "probe"
+    return "xla"
+
+
+def make_search_fn(
+    idx: DeviceIndex,
+    count: int,
+    search_k: int,
+    filter_slots: np.ndarray | None = None,
+    rescore: str = "exact",
+    traversal: str = "auto",
+    state=None,
+    probe_trees="auto",
+    probe_block="auto",
+    probe_dtype="auto",
+):
+    """The forest engine's device-resident search: returns ``(fn, route)``
+    where ``fn(qv, qn, qe, qf) -> (ids, dists)`` takes and returns tensors
+    on the index's device, and ``route`` is "empty", "filter_pool" (the
+    filter pool fits the candidate budget and is re-scored whole) or
+    "probe".  The best-first traversal raises `NotImplementedError`.
+    ``state`` is the host snapshot the probe builds its tables from."""
+    if idx.n_items == 0 or not idx.roots:
+        def empty_fn(qv, qn, qe, qf):
+            b = qv.shape[0]
+            return (
+                torch.zeros((b, max(count, 1)), dtype=torch.int64, device=idx.device),
+                torch.full((b, max(count, 1)), float("nan"), device=idx.device),
+            )
+
+        return empty_fn, "empty"
+
+    has_filter = filter_slots is not None
+    csr_total = max(int(idx.leaf_items.shape[0]) - idx.max_leaf, 1)
+    sk_exact = min(max(search_k, count), csr_total)
+
+    if has_filter and len(filter_slots) <= sk_exact:
+        # The filter pool fits inside the candidate budget: the
+        # reference's traversal would (best case) collect exactly these
+        # items before re-scoring (reference: src/reader.rs:345-360,
+        # 381-391), so skip the forest walk and re-score the whole
+        # filter set — exact results over the candidates.
+        n_f = len(filter_slots)
+        capf = _next_pow2(max(n_f, 1))
+        cand_np = np.full(capf, -1, np.int64)
+        cand_np[:n_f] = np.asarray(filter_slots, np.int64)
+        cand_const = torch.from_numpy(cand_np).to(idx.device)
+        kf = max(min(_next_pow2(count), capf), 1)
+
+        def filter_fn(qv, qn, qe, qf):
+            b = qv.shape[0]
+            mode = rescore_mode(idx.metric, int(b), capf, idx.n_items, rescore)
+            impl = _rescore_matmul if mode == "matmul" else _rescore_batch
+            return impl(
+                idx.metric, idx.dims, kf, idx.rows, idx.norms, idx.extras,
+                idx.slot_to_id, cand_const.expand(b, capf), qv, qn, qe,
+            )
+
+        return filter_fn, "filter_pool"
+
+    if traversal_mode(idx, traversal) == "probe" and state is not None:
+        from .probe import make_probe_fn
+
+        fn = make_probe_fn(
+            idx, state, count, sk_exact,
+            n_trees=probe_trees, block=probe_block, dtype=probe_dtype,
+            filter_slots=filter_slots,
+        )
+        return fn, "probe"
+    raise NotImplementedError(_TRAVERSAL_TODO)
 
 
 def _pad_count(ids, dists, count):

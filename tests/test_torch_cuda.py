@@ -7,7 +7,9 @@ dependencies are installed:
 
 Tolerances: int8 select keys/indices and hamming counts bit-equal; bf16
 select keys within 2·bm with >= 98% equal and indices equal where keys
-are (that of `tests/test_pallas_exact.py`).
+are (that of `tests/test_pallas_exact.py`); gather-score within
+1e-5 · Σ_d |row·q| of the plain version (the same operands, summed in
+another order).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 from arroy_tpu_torch import Database, Reader, Writer
 from arroy_tpu_torch.ops import bq_kernels, fused_select
+from arroy_tpu_torch.ops import gather_score as gs
 from arroy_tpu_torch.ops.fused_select import DEAD_KEY_MAX, fused_block_select
 
 from .torch_util import recall, require_cuda, tie_aware_equal, to_torch
@@ -113,3 +116,79 @@ def test_cuda_searcher_runs_the_kernels(tmp_path, metric, precision, route):
         tie_aware_equal(ids, d, rids, rd, rtol=0, atol=1e-6)
     else:
         assert recall(ids, rids) >= 0.99
+
+
+def _gather_inputs(dev, nbt, p, d, b, c, dtype, seed=0):
+    """Rows [nbt, p, d] of `dtype`, ids [b, c] with repeats and the last
+    block, f32 queries [b, d]."""
+    rng = np.random.default_rng(seed)
+    xf = torch.from_numpy(rng.standard_normal((nbt, p, d)).astype(np.float32))
+    rows = {"f32": xf, "bf16": xf.to(torch.bfloat16),
+            "int8": torch.clamp(torch.round(xf * 40), -127, 127).to(torch.int8)}[dtype]
+    bid = rng.integers(nbt, size=(b, c)).astype(np.int32)
+    if b and c:
+        bid[0, :] = bid[0, 0]  # one query repeats one block
+        bid[-1, -1] = nbt - 1  # the last block
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    return rows.to(dev), torch.from_numpy(bid).to(dev), q.to(dev)
+
+
+def _gather_bound(rows, bid, q):
+    """1e-5 · Σ_d |row·q| for every output element."""
+    return 1e-5 * torch.einsum("bcpd,bd->bcp", rows[bid.long()].float().abs(), q.abs())
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize(
+    "nbt,p,d,b,c",
+    [(50, 64, 768, 7, 1), (50, 48, 768, 5, 9), (30, 64, 100, 6, 5), (9, 16, 100, 3, 13), (40, 48, 37, 4, 3), (8, 64, 768, 0, 4)],
+)
+def test_cuda_gather_score_matches_plain(dtype, nbt, p, d, b, c):
+    dev = require_cuda()
+    rows, bid, q = _gather_inputs(dev, nbt, p, d, b, c, dtype)
+    name = f"gather_score_{dtype}"
+    n0 = gs.launches[name]
+    got = gs.gather_score(rows, bid, q)
+    want = gs.gather_score_reference(rows, bid, q)
+    torch.cuda.synchronize()
+    assert got.shape == (b, c, p) and got.dtype == torch.float32
+    assert gs.launches[name] == n0 + (1 if b and c else 0)
+    assert bool(((got - want).abs() <= _gather_bound(rows, bid, q)).all())
+
+
+def test_cuda_gather_score_rejects_bad_inputs():
+    dev = require_cuda()
+    rows, bid, q = _gather_inputs(dev, 8, 16, 64, 2, 3, "bf16")
+    with pytest.raises(TypeError):
+        gs.gather_score(rows.to(torch.float16), bid, q)
+    with pytest.raises(TypeError):
+        gs.gather_score(rows, bid.long(), q)
+    with pytest.raises(ValueError):
+        gs.gather_score(rows, bid, q[:, :32].contiguous())
+    with pytest.raises(ValueError):
+        gs.gather_score(rows, bid.t(), q)
+
+
+def test_cuda_probe_searcher_runs_gather_score(tmp_path):
+    """The probe engine on the card launches kernel 3 and agrees with the
+    same persisted index searched on the CPU (plain versions)."""
+    dev = require_cuda()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((20_000, 64)).astype(np.float32)
+    db = Database(str(tmp_path), device=dev)
+    w = Writer(db, 0, 64, metric="euclidean")
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(len(x)), x)
+        w.builder(seed=1).n_trees(4).build(wtxn)
+    kw = dict(search_k=4000, engine="forest", traversal="probe", probe_trees=4)
+    r = Reader.open(db.read(), 0, db, metric="euclidean")
+    n0 = gs.launches["gather_score_bf16"]
+    s = r.searcher(10, **kw)
+    assert s.route == "probe"
+    got = s(x[:32] + 0.01)
+    assert gs.launches["gather_score_bf16"] > n0
+    cpu = Database(str(tmp_path), device="cpu")
+    ref = Reader.open(cpu.read(), 0, cpu, metric="euclidean").searcher(10, **kw)(x[:32] + 0.01)
+    ids, d = (np.array([[p[j] for p in row] for row in got]) for j in (0, 1))
+    rids, rd = (np.array([[p[j] for p in row] for row in ref]) for j in (0, 1))
+    assert recall(ids, rids) >= 0.99
