@@ -1,12 +1,12 @@
 """Native storage container (ctypes bindings + pure-Python fallback).
 
-The container format and its C++ implementation belong to the JAX
-package (`arroy_tpu/native/container.cc`); both packages read and write
-the identical file format.  The port compiles that source, read by path
-(never imported), with g++ into its own git-ignored build directory
-`arroy_tpu_torch/_build/`.  When no compiler or source is available, a
-pure-Python implementation of the identical file format takes over, so
-containers are always readable.
+The C++ implementation is this package's own copy of the JAX package's
+`container.cc` (`arroy_tpu_torch/native/container.cc`, kept byte for
+byte), so both packages read and write the identical file format.  It is
+compiled at first use with g++ into the git-ignored build directory
+`arroy_tpu_torch/_build/`.  When no compiler is available, a pure-Python
+implementation of the identical file format takes over, so containers
+are always readable.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ _lib_lock = threading.Lock()
 _lib_failed = False
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the JAX package's container source, compiled by path
-_SRC = os.path.join(os.path.dirname(_PKG_DIR), "arroy_tpu", "native", "container.cc")
+#: the container source, compiled at first use
+_SRC = os.path.join(_PKG_DIR, "native", "container.cc")
 
 
 def _so_path() -> str:

@@ -112,11 +112,13 @@ def fused_block_select(q, x, qsc, mult, add, bm: int = DEFAULT_BM):
             f"fused_block_select: bad shapes q{tuple(q.shape)} x{tuple(x.shape)} "
             f"qsc{tuple(qsc.shape)} mult{tuple(mult.shape)} add{tuple(add.shape)}"
         )
-    if bm % 256 or bm & (bm - 1) or mp % bm or mp // bm > 65535:
+    if bm % 256 or bm & (bm - 1) or mp % bm:
         raise ValueError(f"fused_block_select: bm={bm} must be a pow2 multiple of 256 dividing Mp={mp}")
     tensors = (q, x, qsc, mult, add)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("fused_block_select: tensors must be contiguous on one device")
+    if q.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("fused_block_select: q and x must be 16-byte aligned (TMA)")
     nb = mp // bm
     keys = torch.empty((b, 2 * nb), dtype=torch.int32, device=q.device)
     idx = torch.empty((b, 2 * nb), dtype=torch.int32, device=q.device)

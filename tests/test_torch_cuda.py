@@ -42,11 +42,9 @@ def _select_inputs(dev, b, m, d, dtype, seed=0):
     return tuple(torch.as_tensor(a).to(dev) for a in (q, x, qsc, mult, add))
 
 
-@pytest.mark.parametrize("dtype", ["int8", "bf16"])
-@pytest.mark.parametrize("b,m,bm", [(130, 8192, 256), (5, 4096, 1024), (64, 2048, 256)])
-def test_cuda_select_matches_plain(dtype, b, m, bm):
+def _check_select(dtype, b, m, d, bm):
     dev = require_cuda()
-    inputs = _select_inputs(dev, b, m, 256, dtype)
+    inputs = _select_inputs(dev, b, m, d, dtype)
     n0 = fused_select.launches[f"fused_select_{dtype}"]
     keys, idx = fused_block_select(*inputs, bm=bm)
     rkeys, ridx = fused_select.fused_block_select_reference(*inputs, bm=bm)
@@ -60,6 +58,23 @@ def test_cuda_select_matches_plain(dtype, b, m, bm):
         eq = dk == 0
         assert int(dk.max()) <= 2 * bm and float(eq.float().mean()) >= 0.98
         assert torch.equal(idx[eq], ridx[eq])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("b,m,bm", [(130, 8192, 256), (5, 4096, 1024), (64, 2048, 256)])
+def test_cuda_select_matches_plain(dtype, b, m, bm):
+    _check_select(dtype, b, m, 256, bm)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("b", [1, 65, 130, 2048])
+@pytest.mark.parametrize("m", [4096, 100_352])
+@pytest.mark.parametrize("d", [128, 768])
+def test_cuda_select_ragged_shapes(dtype, b, m, d):
+    """A partial query tile (B = 65, 130), one under a single warpgroup
+    (B = 1), the smallest corpus the fused gate admits (Mp = 4096), one
+    int8 K-slice (d = 128), at bm = 1024."""
+    _check_select(dtype, b, m, d, 1024)
 
 
 @pytest.mark.parametrize("b,m,w", [(1, 1, 2), (130, 1537, 24), (9, 700, 33)])

@@ -6,9 +6,14 @@
   `assert_validity` passes.
 * `DeviceIndex.from_numpy` of the JAX package's `build_np` pack equals the
   port's own device index built from the same state.
+* The port alone, copied away from the JAX package, builds and loads its
+  own native container library.
 """
 
 import os
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -134,3 +139,32 @@ def test_committed_assets_read_identically(asset):
     assert jtx.indexes() == ttx.indexes() and jtx.indexes()
     for index in jtx.indexes():
         _assert_states_equal(jtx.state(index), ttx.state(index))
+
+
+def test_port_builds_its_own_container_alone(tmp_path):
+    """A copy of `arroy_tpu_torch/` alone (no JAX package beside it) writes
+    and reopens a container through the native library it compiled from
+    its own source, not through the pure-Python fallback."""
+    src = os.path.dirname(os.path.abspath(arroy_tpu_torch.__file__))
+    shutil.copytree(src, tmp_path / "arroy_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = (
+        "import numpy as np\n"
+        "from arroy_tpu_torch import native\n"
+        "assert native.native_available(), 'native container library did not load'\n"
+        "a = {'x': np.arange(3000, dtype=np.float32).reshape(100, 30), 'y': np.ones(7, np.int64)}\n"
+        "native.write_container('c.bin', a)\n"
+        "c = native.Container('c.bin', verify=True)\n"
+        "assert c._lib is not None and c._base is not None\n"
+        "for k, v in a.items():\n"
+        "    np.testing.assert_array_equal(c.array(k), v)\n"
+        "c.close(force=True)\n"
+        "print(native._so_path())\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=tmp_path, env=env)
+    assert out.returncode == 0, out.stderr
+    so = out.stdout.strip().splitlines()[-1]
+    assert so == str(tmp_path / "arroy_tpu_torch" / "_build" / "_container.so")
+    assert os.path.exists(so)
