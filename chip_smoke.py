@@ -11,14 +11,14 @@ exits non-zero:
 1. device — requires CUDA (never runs on the CPU); prints the card's name
    and power limit as nvidia-smi reports them;
 2. build — compiles the hand-written kernels from `arroy_tpu_torch/csrc/`,
-   one nvcc per source, all started together, and counts kernel 1's
-   tensor-core (wgmma) instructions in its SASS with cuobjdump: both
-   instances must have some;
+   one nvcc per source, all started together, and counts tensor-core
+   instructions in their SASS with cuobjdump: kernel 1's two instances
+   (wgmma) and kernel 2 (one-bit mma.sync) must have some;
 3. kernel parity — each kernel against its plain PyTorch version on the
    card, at edge-straddling shapes and at the main path's shapes, where
    both are timed with CUDA events beside the card's bound for the same
    work and, where one exists, a PyTorch library call computing it
-   (kernel 1 also beside cuBLAS's bare GEMM at the same shape);
+   (kernels 1 and 2 also beside cuBLAS's bare GEMM at the same shape);
 4. slice — the bench configuration (100,000 x 768 clustered corpus,
    euclidean, 10 trees): add, build, commit to disk, reopen, validate,
    then exact search at f32x1 / bf16 / int8 on 4 batches of 2048
@@ -141,8 +141,8 @@ def check_select(fs, inputs, int8, bm):
 
 
 def tensor_core_ops(so_path):
-    """Count wgmma (HGMMA/IGMMA) and mma.sync (HMMA/IMMA) instructions per
-    kernel in a built library's SASS."""
+    """Count wgmma (HGMMA/IGMMA) and mma.sync (HMMA/IMMA/BMMA) instructions
+    per kernel in a built library's SASS."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -154,7 +154,7 @@ def tensor_core_ops(so_path):
             fn = line.split("Function :")[1].strip()
             counts[fn] = {}
         elif fn is not None:
-            for op in ("HGMMA", "IGMMA", "HMMA", "IMMA"):
+            for op in ("HGMMA", "IGMMA", "HMMA", "IMMA", "BMMA"):
                 if op in line:
                     counts[fn][op] = counts[fn].get(op, 0) + 1
     return counts
@@ -297,31 +297,51 @@ def kernel_parity(dev, rec):
             f"({rec[name]['tops']:.1f} T{'OP' if int8 else 'FLOP'}/s), bare GEMM "
             f"{rec[name]['gemm_ms']:.4f} ms, ratio {rec[name]['ms_over_gemm']:.3f}")
         del inputs, q, x
-    err = 0
-    for b, m in ((130, 1537), (BATCH, M)):
-        qw = torch.from_numpy(rng.integers(-2**31, 2**31, (b, 24), dtype=np.int64).astype(np.int32)).to(dev)
-        xw = torch.from_numpy(rng.integers(-2**31, 2**31, (m, 24), dtype=np.int64).astype(np.int32)).to(dev)
+    # kernel 2: every B of {1, 65, 130, 2048} with every M of {1, 127, 1537,
+    # 100,000} at w = 24 (d = 768), then w = 1, 7, 8, 9 (around one 8-word
+    # k-step), 40 (d = 1280) and 320 (past the SIMT kernel's old cap)
+    ham_cases = [(b, m, 24) for b in (1, 65, 130, BATCH) for m in (1, 127, 1537, M)] + [
+        (130, 1537, w) for w in (1, 7, 8, 9, 40, 320)]
+    for b, m, w in ham_cases:
+        qw, xw = (torch.from_numpy(rng.integers(-2**31, 2**31, (n, w), dtype=np.int64)
+                                   .astype(np.int32)).to(dev) for n in (b, m))
         h = bk.bq_hamming_matrix(qw, xw)
         hr = bk.bq_hamming_matrix_reference(qw, xw)
-        assert torch.equal(h, hr), "hamming kernel differs from its plain version"
-        err = max(err, int((h - hr).abs().max()))
-        say("parity", f"bq_hamming B={b} M={m} w=24: bit-equal")
+        assert torch.equal(h, hr), f"hamming kernel differs from its plain version at B={b} M={m} w={w}"
+        say("parity", f"bq_hamming B={b} M={m} w={w}: bit-equal")
+        if (b, m, w) == (BATCH, M, 24):
+            main_in = (qw, xw, h)  # the main path's shape, timed below
+        del qw, xw, h, hr
+    qw, xw, h = main_in
+    del main_in
     r = rec["bq_hamming"]
-    r["max_abs_err"] = err
+    r["max_abs_err"] = 0
     r["ms"] = cuda_ms(lambda: bk.bq_hamming_matrix(qw, xw), 10)
     r["plain_ms"] = cuda_ms(lambda: bk.bq_hamming_matrix_reference(qw, xw), 3)
-    # bytes-bound: the [B, M] int32 output (the table has no rate for
-    # xor/popcount on the SIMT pipes)
+    # bytes-bound: the [B, M] int32 output (the table has no one-bit
+    # tensor-core rate)
     r.update({"bound_ms": (4.0 * (qw.numel() + xw.numel() + h.numel())) / HBM_BPS * 1e3,
               "bound_by": "bytes"})
     # one library call computes the same counts: cdist with p=0 over the
     # unpacked 0/1 bits (unpacked outside the timed window)
-    qb = (unpack_bits(qw, 24 * 32) > 0).float()
-    xb = (unpack_bits(xw, 24 * 32) > 0).float()
-    assert torch.equal(torch.cdist(qb, xb, p=0), h.float()), "cdist(p=0) differs from the counts"
-    r["library_ms"] = cuda_ms(lambda: torch.cdist(qb, xb, p=0), 3)
+    qb = unpack_bits(qw, 24 * 32)
+    xb = unpack_bits(xw, 24 * 32)
+    qz, xz = (qb > 0).float(), (xb > 0).float()
+    assert torch.equal(torch.cdist(qz, xz, p=0), h.float()), "cdist(p=0) differs from the counts"
+    r["library_ms"] = cuda_ms(lambda: torch.cdist(qz, xz, p=0), 3)
     r["library"] = "torch.cdist(p=0) over unpacked 0/1 bits"
-    del qw, xw, h, hr, qb, xb
+    del qz, xz
+    # the same product as one cuBLAS call: the ±1 dot, 768 - 2 h, int32
+    # [B, M] like the kernel's output
+    qi, xi = qb.to(torch.int8), xb.to(torch.int8)
+    del qb, xb
+    assert torch.equal(torch._int_mm(qi, xi.t()), 24 * 32 - 2 * h), "±1 int8 GEMM differs"
+    r["gemm_ms"] = cuda_ms(lambda: torch._int_mm(qi, xi.t()), 10)
+    r["ms_over_gemm"] = r["ms"] / r["gemm_ms"]
+    say("kernel2", f"bq_hamming at B={BATCH} M={M} w=24: kernel {r['ms']:.4f} ms "
+        f"({4.0 * h.numel() / r['ms'] / 1e6:.0f} GB/s of output), bound {r['bound_ms']:.4f} ms, "
+        f"±1 int8 GEMM {r['gemm_ms']:.4f} ms, ratio {r['ms_over_gemm']:.3f}")
+    del qw, xw, h, qi, xi
     # kernel 3 at edge shapes: C = 1, P = 64 and 48, d = 768 and 100 (a
     # bf16 row of 200 bytes is not a multiple of 16), repeated ids and the
     # last block id
@@ -561,6 +581,14 @@ def main() -> int:
     say("build", f"fused_select tensor-core instructions in SASS: {json.dumps(mma_ops)}")
     for inst in ("fused_select_int8", "fused_select_bf16"):
         assert sum(mma_ops.get(inst, {}).values()) > 0, f"{inst} has no tensor-core instruction"
+    # kernel 2 must count on the tensor cores: one-bit MMAs in its SASS
+    ham_ops = {}
+    for ops in tensor_core_ops(f"{_build.BUILD_DIR}/libhamming.so").values():
+        for op, n in ops.items():
+            ham_ops[op] = ham_ops.get(op, 0) + n
+    say("build", f"hamming tensor-core instructions in SASS: {json.dumps(ham_ops)}")
+    assert ham_ops.get("BMMA", 0) + ham_ops.get("IMMA", 0) > 0, "bq_hamming has no tensor-core instruction"
+    mma_ops["bq_hamming"] = ham_ops
 
     # 3. kernel parity
     rec = {

@@ -77,16 +77,38 @@ def test_cuda_select_ragged_shapes(dtype, b, m, d):
     _check_select(dtype, b, m, d, 1024)
 
 
-@pytest.mark.parametrize("b,m,w", [(1, 1, 2), (130, 1537, 24), (9, 700, 33)])
+def _hamming_words(dev, n, w, rng, offset=0):
+    """[n, w] random packed words on `dev`; with an offset, a contiguous
+    view `offset` words into its storage (not 16-byte aligned)."""
+    a = to_torch(rng.integers(0, 2**32, n * w + offset, dtype=np.uint64).astype(np.uint32), dev)
+    return a[offset:].view(n, w)
+
+
+# every B of {1, 65, 130, 2048} with every M of {1, 127, 1537, 100,000} at
+# w = 24 (d = 768); w around one 8-word k-step, d = 1280 and w = 320 (past
+# the SIMT kernel's old cap of 306); earlier odd shapes
+HAMMING_SHAPES = [(b, m, 24) for b in (1, 65, 130, 2048) for m in (1, 127, 1537, 100_000)] + [
+    (130, 1537, w) for w in (1, 7, 8, 9, 40, 320)] + [(1, 1, 2), (9, 700, 33)]
+
+
+@pytest.mark.parametrize("b,m,w", HAMMING_SHAPES)
 def test_cuda_hamming_matches_plain(b, m, w):
     dev = require_cuda()
     rng = np.random.default_rng(b + m + w)
-    q = to_torch(rng.integers(0, 2**32, (b, w), dtype=np.uint64).astype(np.uint32), dev)
-    x = to_torch(rng.integers(0, 2**32, (m, w), dtype=np.uint64).astype(np.uint32), dev)
+    q, x = _hamming_words(dev, b, w, rng), _hamming_words(dev, m, w, rng)
     n0 = bq_kernels.launches["bq_hamming"]
     got = bq_kernels.bq_hamming_matrix(q, x)
     assert bq_kernels.launches["bq_hamming"] == n0 + 1
     assert torch.equal(got, bq_kernels.bq_hamming_matrix_reference(q, x))
+
+
+def test_cuda_hamming_unaligned_rows():
+    """Rows that do not start on 16 bytes take the kernel's 4-byte copies."""
+    dev = require_cuda()
+    rng = np.random.default_rng(5)
+    q, x = _hamming_words(dev, 130, 24, rng, 1), _hamming_words(dev, 1537, 24, rng, 3)
+    assert q.data_ptr() % 16 and x.data_ptr() % 16
+    assert torch.equal(bq_kernels.bq_hamming_matrix(q, x), bq_kernels.bq_hamming_matrix_reference(q, x))
 
 
 def test_cuda_wrappers_reject_bad_inputs():
@@ -99,6 +121,19 @@ def test_cuda_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         bq_kernels.bq_hamming_matrix(torch.zeros((2, 4), dtype=torch.int32, device=dev),
                                      torch.zeros((3, 5), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # mismatched w past the old cap
+        bq_kernels.bq_hamming_matrix(torch.zeros((2, 320), dtype=torch.int32, device=dev),
+                                     torch.zeros((3, 321), dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError):
+        bq_kernels.bq_hamming_matrix(torch.zeros((2, 4), dtype=torch.int64, device=dev),
+                                     torch.zeros((3, 4), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        bq_kernels.bq_hamming_matrix(torch.zeros((4, 2), dtype=torch.int32, device=dev).t(),
+                                     torch.zeros((3, 4), dtype=torch.int32, device=dev))
+    # w = 320 (d = 10,240) is taken: the kernel has no width cap
+    ones = torch.full((2, 320), -1, dtype=torch.int32, device=dev)
+    assert torch.equal(bq_kernels.bq_hamming_matrix(ones, torch.zeros((3, 320), dtype=torch.int32, device=dev)),
+                       torch.full((2, 3), 320 * 32, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.parametrize("metric,precision,route", [

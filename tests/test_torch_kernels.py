@@ -102,7 +102,7 @@ def test_plain_select_odd_query_count():
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
 
 
-@pytest.mark.parametrize("b,m,w", [(1, 1, 2), (7, 130, 4), (130, 1537, 24)])
+@pytest.mark.parametrize("b,m,w", [(1, 1, 2), (7, 130, 4), (130, 1537, 24), (1, 127, 9), (65, 700, 40), (3, 5, 320)])
 def test_plain_hamming_matches_jax(b, m, w):
     rng = np.random.default_rng(b * 1000 + m)
     q = rng.integers(0, 2**32, (b, w), dtype=np.uint64).astype(np.uint32)
