@@ -367,6 +367,21 @@ def _rank_blocks(metric, L, nb_max, scale, cent, caux, valid, qv) -> torch.Tenso
     return (topL + base).reshape(b, T * L)
 
 
+def gather_chunk(b: int, blk_rows: torch.Tensor) -> int:
+    """Blocks per query that stage 2 scores in one chunk: `PROBE_GATHER_BYTES`
+    over the bytes a [b, 1, P, d] slab of the JAX package's gathered rows
+    and temporaries takes (the JAX package's rule, kept so both take the
+    same chunks)."""
+    d = blk_rows.shape[-1]
+    if blk_rows.dtype == torch.int32:  # packed sign-bit words
+        per_slot = d * 8
+    elif blk_rows.dtype == torch.int8:
+        per_slot = d * 4
+    else:
+        per_slot = d * (6 if blk_rows.dtype == torch.bfloat16 else 8)
+    return max(1, int(PROBE_GATHER_BYTES) // max(b * blk_rows.shape[1] * per_slot, 1))
+
+
 def _probe_core(
     metric, dims, k, k2, L, nb_max, scale,
     cent, caux, valid, blk_rows, blk_aux, blk_slots, blk_scale,
@@ -453,13 +468,7 @@ def _probe_core(
     # score in chunks of `ch` blocks with per-chunk winners and one final
     # merge (the JAX package's rule, kept so both take the same chunks)
     C = T * L
-    if packed:
-        per_slot = blk_rows.shape[-1] * 8
-    elif blk_rows.dtype == torch.int8:
-        per_slot = blk_rows.shape[-1] * 4
-    else:
-        per_slot = blk_rows.shape[-1] * (6 if blk_rows.dtype == torch.bfloat16 else 8)
-    ch = max(1, int(PROBE_GATHER_BYTES) // max(b * P * per_slot, 1))
+    ch = gather_chunk(b, blk_rows)
     if C <= ch:
         sel_s, cand = cut(*score_blocks(bid), k2)
     else:

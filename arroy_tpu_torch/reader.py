@@ -4,7 +4,8 @@ Counterpart of `arroy_tpu/reader.py`.  `Reader.open` validates metadata,
 distance and pending-update state (reference: src/reader.rs:140-177);
 `searcher()` returns a bound serving handle over the database's device.
 The exact engine serves every built-in metric (``engine="auto"`` picks
-it, as in the JAX package).  ``engine="forest"`` serves the leaf-probe
+it, as in the JAX package, unless the corpus holds more items than
+``ARROY_EXACT_MAX_ITEMS``).  ``engine="forest"`` serves the leaf-probe
 engine (``traversal="probe"``, which ``"auto"`` resolves to at 262,144
 items and above); the best-first traversal — ``traversal="xla"`` and the
 `nns(...)` query builder — is not ported yet and raises
@@ -13,6 +14,7 @@ items and above); the best-first traversal — ``traversal="xla"`` and the
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -119,8 +121,8 @@ class Searcher:
     ``engine`` selects the whole search strategy:
 
     - ``"exact"`` (and ``"auto"``, which resolves to it for every
-      built-in metric) scores every item; ``precision`` picks the mode
-      (see `search.make_exact_fn`).
+      built-in metric up to ``ARROY_EXACT_MAX_ITEMS`` items) scores
+      every item; ``precision`` picks the mode (see `search.make_exact_fn`).
     - ``"forest"`` serves the `search_k` candidate budget through the
       forest (`search.make_search_fn`): the leaf-probe engine
       (``traversal="probe"``, or ``"auto"`` at 262,144+ items; tuned by
@@ -146,7 +148,16 @@ class Searcher:
     ):
         dev = reader._device()
         if engine == "auto":
-            engine = "exact" if exact_engine_supported(dev.metric) else "forest"
+            # exact whenever the metric supports it; ARROY_EXACT_MAX_ITEMS
+            # is the operator's cutoff that sends larger corpora to the
+            # forest (as in the JAX package's `Searcher`)
+            limit = os.environ.get("ARROY_EXACT_MAX_ITEMS")
+            if not exact_engine_supported(dev.metric) or (
+                limit is not None and dev.n_items > int(limit)
+            ):
+                engine = "forest"
+            else:
+                engine = "exact"
         filter_slots = None
         if qb._candidates is not None:
             inter = qb._candidates.intersection(

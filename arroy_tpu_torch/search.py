@@ -231,17 +231,17 @@ def _exact_bq_matrix(metric, dims, k, rows, norms, slot_to_id, live, qv, qn):
 
 def _exact_batch(metric, dims, k, rows, norms, extras, slot_to_id, live, qv, qn, qe):
     """Per-pair reference formulas against every row (`_exact_batch`),
-    chunked over queries to bound the [Bc, M, sd] temporary."""
+    chunked over queries to bound the [Bc, M, sd] temporary; each chunk
+    keeps only its top-k, so no [B, M] matrix is ever whole."""
     step = max(_PAIR_CHUNK_BYTES // max(rows.shape[0] * rows.shape[1] * 8, 1), 1)
     parts = []
-    for s in range(0, qv.shape[0], step):
+    for s in range(0, max(qv.shape[0], 1), step):
         d = metric.built_distance(
             qv[s : s + step, None, :], qn[s : s + step, None], qe[s : s + step, None],
             rows[None], norms[None], extras[None],
         )
-        parts.append(torch.where(live[None, :], d, _INF))
-    d = torch.cat(parts) if parts else torch.empty((0, rows.shape[0]), device=rows.device)
-    return _finish(metric, dims, k, d, slot_to_id)
+        parts.append(_finish(metric, dims, k, torch.where(live[None, :], d, _INF), slot_to_id))
+    return torch.cat([i for i, _ in parts]), torch.cat([d for _, d in parts])
 
 
 def _exact_matmul(metric, dims, k, x2, rows, norms, slot_to_id, live, qv, qn):
@@ -321,7 +321,6 @@ def make_exact_fn(
 
     if metric.name == "manhattan":
         def man_fn(qv, qn, qe, qf):
-            _check_dots_budget(qv.shape[0], idx.cap)
             return _exact_batch(metric, dims, k, rows, norms, extras, s2i, live, qv, qn, qe)
 
         return man_fn, "exact_batch"

@@ -31,7 +31,9 @@ exits non-zero:
    resolve to the probe; bench.py's search_k policy (start at 2000,
    double until recall@10 against f32x1 reaches 0.95) for bf16, int8 and
    f32 block tables; 64 queries held against the same searcher on the
-   CPU; then kernel 3 timed on a real selection of blocks.
+   CPU; then kernel 3 timed on a real selection of blocks, with the
+   share of distinct blocks in the whole selection and in the probe's
+   chunks of it, and its rates on total, distinct and read bytes.
 
 Kernel launch counts are reset right before each main path (phases 4-5,
 and phase 6) and read right after it: every kernel of that path must have
@@ -82,6 +84,24 @@ def cuda_ms(fn, reps: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of `fn` alone: a spin kernel holds the card while the host
+    queues every launch, so the events see the launches back to back,
+    without the host's time between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms: longer than queueing `reps` calls
     t0.record()
     for _ in range(reps):
         fn()
@@ -342,17 +362,26 @@ def kernel_parity(dev, rec):
         f"({4.0 * h.numel() / r['ms'] / 1e6:.0f} GB/s of output), bound {r['bound_ms']:.4f} ms, "
         f"±1 int8 GEMM {r['gemm_ms']:.4f} ms, ratio {r['ms_over_gemm']:.3f}")
     del qw, xw, h, qi, xi
-    # kernel 3 at edge shapes: C = 1, P = 64 and 48, d = 768 and 100 (a
-    # bf16 row of 200 bytes is not a multiple of 16), repeated ids and the
-    # last block id
+    # kernel 3 at edge shapes: C = 1, P = 64, 48 and 16, d = 768, 100 (a
+    # bf16 row of 200 bytes is not a multiple of 16) and 37 (1-byte int8
+    # loads), repeated ids and the last block id, and one block chosen by
+    # all 600 pairs (a run across 19 CTAs' slices), each scored both in
+    # query order (as calls below SCHEDULE_MIN_BYTES are) and with the
+    # pairs sorted by block
+    min_bytes = gs.SCHEDULE_MIN_BYTES
     for dtype in ("bf16", "int8", "f32"):
         err = 0.0
         for nbt, p, d, b, c in ((200, 64, 768, 16, 1), (200, 48, 768, 9, 24),
-                                (120, 64, 100, 7, 13), (120, 48, 100, 5, 7)):
-            err = max(err, check_gather(gs, *gather_inputs(rng, dev, nbt, p, d, b, c, dtype)))
+                                (120, 64, 100, 7, 13), (120, 48, 100, 5, 7),
+                                (60, 16, 37, 70, 5), (1, 64, 768, 300, 2)):
+            inputs = gather_inputs(rng, dev, nbt, p, d, b, c, dtype)
+            for gs.SCHEDULE_MIN_BYTES in (min_bytes, 0):
+                err = max(err, check_gather(gs, *inputs))
+        gs.SCHEDULE_MIN_BYTES = min_bytes
         rec[f"gather_score_{dtype}"]["max_abs_err"] = err
-        say("parity", f"gather_score_{dtype}: C=1, P=64/48, d=768/100, repeated and "
-            f"last ids: max |d| {err:.3g} within 1e-5 * sum|row*q|")
+        say("parity", f"gather_score_{dtype}: C=1, P=64/48/16, d=768/100/37, repeated, last "
+            f"and hot ids, in query order and sorted by block: max |d| {err:.3g} within "
+            f"1e-5 * sum|row*q|")
     for name, r in rec.items():
         if "ms" in r:
             say("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -510,6 +539,8 @@ def time_gather(gs, served, batches, rec):
     serves, and its bound, on the [B, C] selection stage 1 made for batch 0."""
     import torch
 
+    from arroy_tpu_torch.probe import gather_chunk
+
     for kind, (s, sk, _, _) in served.items():
         fn = s.device_fn
         qv = s.prepare_queries(batches[0])[0]
@@ -540,6 +571,35 @@ def time_gather(gs, served, batches, rec):
             f"blocks of {b * c}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
             f"library {r['library_ms']:.3f} ms ({r['library']}), bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), max |d| {r['max_abs_err']:.3g}")
+        # reuse: distinct blocks over pairs for the whole C and for the
+        # probe's own chunks of C, and the blocks the kernel reads (once
+        # per run of a block within each CTA's slice of the schedule, or
+        # once a pair in a call too small to be sorted)
+        blk_bytes = p * d * rows.element_size()
+        ch = gather_chunk(b, rows)
+        chunks = [bid[:, i:i + ch].contiguous() for i in range(0, c, ch)]
+        uniq_ch = sum(int(torch.unique(x).numel()) for x in chunks)
+
+        def reads_of(x):
+            if x.numel() * blk_bytes < gs.SCHEDULE_MIN_BYTES:
+                return x.numel()
+            return gs.block_reads(gs.block_schedule(x, rows.shape[0])[0])
+
+        reads, reads_ch = reads_of(bid), sum(reads_of(x) for x in chunks)
+        r["distinct_share"] = uniq / (b * c)
+        r["chunk_distinct_share"] = uniq_ch / (b * c)
+        r["schedule_ms"] = device_ms(lambda: gs.block_schedule(bid, rows.shape[0]), 10)
+        r["chunked_ms"] = cuda_ms(lambda: [gs.gather_score(rows, x, q) for x in chunks], 10)
+        say("kernel3", f"gather_score_{kind} reuse: {uniq} distinct blocks of {b * c} pairs "
+            f"(share {r['distinct_share']:.4f}); in the probe's {len(chunks)} chunks of {ch} "
+            f"blocks a query {uniq_ch} (share {r['chunk_distinct_share']:.4f}); blocks the kernel "
+            f"reads: {reads} whole, {reads_ch} chunked")
+        say("kernel3", f"gather_score_{kind} rates: {b * c * blk_bytes / r['ms'] / 1e6:.0f} GB/s "
+            f"of total row bytes, {uniq * blk_bytes / r['ms'] / 1e6:.0f} GB/s of distinct ones, "
+            f"{reads * blk_bytes / r['ms'] / 1e6:.0f} GB/s of the blocks it reads; the schedule "
+            f"alone {r['schedule_ms']:.4f} ms on the device; the probe's {len(chunks)} chunked "
+            f"calls {r['chunked_ms']:.3f} ms (sorted by block where a chunk gathers "
+            f"{gs.SCHEDULE_MIN_BYTES >> 20} MiB or more)")
 
 
 def main() -> int:

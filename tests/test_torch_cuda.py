@@ -168,9 +168,10 @@ def test_cuda_searcher_runs_the_kernels(tmp_path, metric, precision, route):
         assert recall(ids, rids) >= 0.99
 
 
-def _gather_inputs(dev, nbt, p, d, b, c, dtype, seed=0):
+def _gather_inputs(dev, nbt, p, d, b, c, dtype, seed=0, round_q=False):
     """Rows [nbt, p, d] of `dtype`, ids [b, c] with repeats and the last
-    block, f32 queries [b, d]."""
+    block, f32 queries [b, d] (rounded to bf16 values, as the probe sends
+    them for bf16 and int8 tables, when `round_q`)."""
     rng = np.random.default_rng(seed)
     xf = torch.from_numpy(rng.standard_normal((nbt, p, d)).astype(np.float32))
     rows = {"f32": xf, "bf16": xf.to(torch.bfloat16),
@@ -180,6 +181,8 @@ def _gather_inputs(dev, nbt, p, d, b, c, dtype, seed=0):
         bid[0, :] = bid[0, 0]  # one query repeats one block
         bid[-1, -1] = nbt - 1  # the last block
     q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    if round_q:
+        q = q.to(torch.bfloat16).float()
     return rows.to(dev), torch.from_numpy(bid).to(dev), q.to(dev)
 
 
@@ -204,6 +207,93 @@ def test_cuda_gather_score_matches_plain(dtype, nbt, p, d, b, c):
     assert got.shape == (b, c, p) and got.dtype == torch.float32
     assert gs.launches[name] == n0 + (1 if b and c else 0)
     assert bool(((got - want).abs() <= _gather_bound(rows, bid, q)).all())
+
+
+@pytest.fixture(params=["schedule", "query order"])
+def gather_order(request, monkeypatch):
+    """Every gather case both ways: the pairs sorted by block first (as calls
+    of SCHEDULE_MIN_BYTES or more run), and scored in query order."""
+    monkeypatch.setattr(gs, "SCHEDULE_MIN_BYTES", 0 if request.param == "schedule" else 2**62)
+    return request.param
+
+
+def _check_gather(rows, bid, q):
+    """One launch, and every output within the tolerance of the plain version."""
+    name = gs._ROW_TYPES[rows.dtype][1]
+    n0 = gs.launches[name]
+    got = gs.gather_score(rows, bid, q)
+    want = gs.gather_score_reference(rows, bid, q)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert gs.launches[name] == n0 + (1 if got.numel() else 0)
+    assert bool(((got - want).abs() <= _gather_bound(rows, bid, q)).all())
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("round_q", [False, True])
+@pytest.mark.parametrize("p", [16, 48, 64])
+@pytest.mark.parametrize("d", [768, 100, 37])
+def test_cuda_gather_score_shapes(dtype, round_q, p, d, gather_order):
+    """P in {16, 48, 64}; d = 768 (8-byte int8 loads, 3 a lane), 100 and
+    37 (narrow loads); bf16-rounded and unrounded f32 queries."""
+    dev = require_cuda()
+    _check_gather(*_gather_inputs(dev, 60, p, d, 37, 11, dtype, seed=p + d, round_q=round_q))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("b,c", [(1, 1), (40, 3), (300, 2), (5, 70)])
+def test_cuda_gather_score_one_shared_block(dtype, b, c, gather_order):
+    """Every query picks the same block: one run spans many slices of 32
+    pairs (300 x 2 = 600 pairs: a hot block past one CTA's cap)."""
+    dev = require_cuda()
+    rows, _, q = _gather_inputs(dev, 20, 64, 768, b, c, dtype, seed=b + c)
+    _check_gather(rows, torch.full((b, c), 13, dtype=torch.int32, device=dev), q)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
+def test_cuda_gather_score_hot_block(dtype, gather_order):
+    """One block chosen by 100 queries (past one CTA's 32 pairs) among
+    random others, a run that crosses slice edges."""
+    dev = require_cuda()
+    rows, bid, q = _gather_inputs(dev, 500, 64, 768, 128, 9, dtype, seed=21)
+    bid[:100, 4] = 7
+    bid[:100, 5] = 499
+    _check_gather(rows, bid, q)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_cuda_gather_score_unaligned(dtype, offset, gather_order):
+    """Rows and query not 16-byte aligned (contiguous views into larger
+    storage): narrower loads, and the query copied to an aligned buffer."""
+    dev = require_cuda()
+    rows, bid, q = _gather_inputs(dev, 30, 48, 768, 9, 13, dtype, seed=offset)
+    flat = torch.zeros(rows.numel() + offset, dtype=rows.dtype, device=dev)
+    flat[offset:] = rows.reshape(-1)
+    rows = flat[offset:].view(rows.shape)
+    qf = torch.zeros(q.numel() + offset, dtype=q.dtype, device=dev)
+    qf[offset:] = q.reshape(-1)
+    q = qf[offset:].view(q.shape)
+    assert q.data_ptr() % 16
+    _check_gather(rows, bid, q)
+
+
+@pytest.mark.parametrize("n,nbt", [(1, 1), (31, 5), (18_432, 34_888), (5_000, 120_000), (70_000, 300)])
+def test_cuda_gather_schedule_sorts_every_pair_once(n, nbt):
+    """The schedule kernel: ids sorted, every pair once, each id its pair's
+    own; past 53,248 blocks it counts in several passes."""
+    dev = require_cuda()
+    bid = torch.from_numpy(np.random.default_rng(n).integers(nbt, size=n).astype(np.int32)).to(dev)
+    keys, pairs = gs.block_schedule(bid.view(1, n), nbt)
+    assert torch.equal(keys, torch.sort(bid).values)
+    assert torch.equal(torch.sort(pairs).values, torch.arange(n, dtype=torch.int32, device=dev))
+    assert torch.equal(bid[pairs.long()], keys)
+
+
+def test_cuda_gather_score_many_blocks(gather_order):
+    """60,000 blocks: the schedule's counting sort takes two passes."""
+    dev = require_cuda()
+    _check_gather(*_gather_inputs(dev, 60_000, 16, 37, 64, 50, "int8", seed=9))
 
 
 def test_cuda_gather_score_rejects_bad_inputs():

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import arroy_tpu
+import arroy_tpu_torch
 from arroy_tpu.device import DeviceIndex as JDeviceIndex
 from arroy_tpu.metrics import metric_by_name as j_metric
 from arroy_tpu.models.forest import Forest
@@ -24,6 +26,7 @@ from arroy_tpu.search import _exact_bq_matrix as j_bq_matrix
 from arroy_tpu.search import make_exact_fn as j_make_exact_fn
 from arroy_tpu_torch.device import DeviceIndex
 from arroy_tpu_torch.metrics import metric_by_name as t_metric
+from arroy_tpu_torch import search as t_search
 from arroy_tpu_torch.ops import bq_kernels, fused_select
 from arroy_tpu_torch.search import exact_batch, make_exact_fn
 
@@ -149,6 +152,44 @@ def test_manhattan_matches_jax():
     ids, d = _run_port(fn, "manhattan", q)
     jids, jd = _run_jax(j_make_exact_fn(jidx, 10), "manhattan", q)
     tie_aware_equal(ids, d, jids, jd, rtol=1e-5, atol=1e-5)
+
+
+def test_manhattan_past_the_matrix_budget(monkeypatch):
+    """With both budgets shrunk, manhattan runs in query chunks that keep
+    their own top-k (at least 3 here) and still returns the JAX ids."""
+    jidx, tidx, x = _state("manhattan", 1200, 12, seed=15)
+    q = _queries(x, 10, seed=16)
+    monkeypatch.setattr(t_search, "_EXACT_DOTS_BYTES", 1)
+    monkeypatch.setattr(t_search, "_PAIR_CHUNK_BYTES", 4 * 1200 * 12 * 8)
+    fn, route = make_exact_fn(tidx, 10)
+    assert route == "exact_batch"
+    ids, d = _run_port(fn, "manhattan", q)
+    jids, jd = _run_jax(j_make_exact_fn(jidx, 10), "manhattan", q)
+    tie_aware_equal(ids, d, jids, jd, rtol=1e-5, atol=1e-5)
+
+
+def test_exact_max_items_routes_auto_to_the_forest(tmp_path, monkeypatch):
+    """``ARROY_EXACT_MAX_ITEMS`` below the corpus size sends engine="auto"
+    to the forest, as the JAX package resolves it; unset, auto is exact."""
+    m, d = 600, 16
+    x = np.random.default_rng(17).standard_normal((m, d)).astype(np.float32)
+    db = arroy_tpu.Database(str(tmp_path))
+    w = arroy_tpu.Writer(db, 0, d, metric="euclidean")
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(m, dtype=np.uint32), x)
+        w.builder(seed=3).n_trees(3).build(wtxn)
+    jr = arroy_tpu.Reader.open(db.read(), 0, db, metric="euclidean")
+    tdb = arroy_tpu_torch.Database(str(tmp_path), device="cpu")
+    tr = arroy_tpu_torch.Reader.open(tdb.read(), 0, tdb, metric="euclidean")
+    kw = dict(search_k=300, traversal="probe", probe_trees=3, probe_block=16)
+    monkeypatch.delenv("ARROY_EXACT_MAX_ITEMS", raising=False)
+    assert tr.searcher(10, **kw).engine == jr.searcher(10, **kw).engine == "exact"
+    monkeypatch.setenv("ARROY_EXACT_MAX_ITEMS", str(m - 1))
+    s = tr.searcher(10, **kw)
+    assert s.engine == jr.searcher(10, **kw).engine == "forest"
+    assert s.route == "probe"
+    monkeypatch.setenv("ARROY_EXACT_MAX_ITEMS", str(m))
+    assert tr.searcher(10, **kw).engine == "exact"
 
 
 @pytest.mark.parametrize("precision", ["f32x1", "bf16"])

@@ -24,6 +24,7 @@ from arroy_tpu import probe as j_probe
 from arroy_tpu.ops.pallas_probe import gather_score as j_gather_score
 from arroy_tpu_torch import probe as t_probe
 from arroy_tpu_torch import search as t_search
+from arroy_tpu_torch.ops import gather_score as t_gs
 from arroy_tpu_torch.ops.gather_score import gather_score, gather_score_reference
 
 from .torch_util import tie_aware_equal
@@ -112,6 +113,41 @@ def test_gather_score_reference_matches_pallas(dtype):
     mag = np.einsum("bcpd,bd->bcp", np.abs(rows), np.abs(q))
     assert got.shape == (b, c, p)
     assert np.all(np.abs(got - want) <= 1e-5 * mag)
+
+
+@pytest.mark.parametrize("b,c,nbt", [(1, 1, 3), (37, 11, 60), (256, 72, 400), (300, 2, 1)])
+def test_block_schedule_covers_every_pair_once(b, c, nbt):
+    """The kernel's schedule: every (b, c) pair exactly once, sorted by
+    block id, each id the pair's own; the kernel reads a block once per
+    run of it within each slice of 32 pairs."""
+    rng = np.random.default_rng(b + c)
+    bid = torch.from_numpy(rng.integers(nbt, size=(b, c)).astype(np.int32))
+    keys, pairs = t_gs.block_schedule(bid, nbt)
+    assert keys.dtype == torch.int32 and pairs.dtype == torch.int32
+    assert torch.equal(torch.sort(pairs).values, torch.arange(b * c, dtype=torch.int32))
+    assert torch.equal(keys, bid.reshape(-1)[pairs.long()])
+    assert bool((keys[1:] >= keys[:-1]).all())
+    reads = t_gs.block_reads(keys)
+    distinct = int(torch.unique(bid).numel())
+    assert distinct <= reads <= distinct + -(-b * c // t_gs.SLICE) - 1
+    if nbt == 1:  # one hot block: read once by each CTA
+        assert reads == -(-b * c // t_gs.SLICE)
+
+
+def test_vec_bytes_leaves_no_lane_idle():
+    """Load widths: an int8 row of 768 takes 8-byte loads (96 vectors, 3 a
+    lane) over 16-byte ones (48: half the lanes idle for the last third);
+    odd rows and unaligned bases take the widest width that divides both."""
+    def vb(dtype, d, offset=0):
+        flat = torch.zeros(2 * 4 * d + offset, dtype=dtype)
+        return t_gs._vec_bytes(flat[offset:].view(2, 4, d))
+
+    assert vb(torch.int8, 768) == 8
+    assert vb(torch.bfloat16, 768) == 16 and vb(torch.float32, 768) == 16
+    assert vb(torch.int8, 100) == 4 and vb(torch.int8, 37) == 1
+    assert vb(torch.bfloat16, 100) == 8
+    assert vb(torch.int8, 768, 3) == 1 and vb(torch.bfloat16, 768, 1) == 2
+    assert vb(torch.float32, 768, 1) == 4
 
 
 # ---------------------------------------------------------------------------
