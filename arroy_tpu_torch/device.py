@@ -72,9 +72,51 @@ class DeviceIndex:
     n_items: int
     max_leaf: int
     cap: int
+    #: ascending-sorted leaf sizes, cumulative (host) — bounds the number
+    #: of leaf pops any query can need to reach a candidate budget
     leaf_cum_np: np.ndarray = None
+    #: number of split nodes — bounds queue pushes (each split node enters
+    #: the priority queue at most once: one parent, popped once)
     n_splits: int = 0
+    #: table rows poppable without yielding candidates (empty leaves, FREE)
     n_dead_pops: int = 0
+
+    def max_leaf_pops(self, search_k: int) -> int:
+        """Worst-case non-empty leaf pops before `search_k` candidate
+        slots are filled: take the smallest leaves first."""
+        if self.leaf_cum_np is None or len(self.leaf_cum_np) == 0:
+            return max(search_k, 1)
+        m = int(np.searchsorted(self.leaf_cum_np, search_k, side="left")) + 1
+        return min(m, len(self.leaf_cum_np))
+
+    def nbytes(self) -> int:
+        """Device bytes of this index's tensors (the budget a serving
+        deployment reserves per resident generation).  `slot_to_id` is
+        int64 here, so this is 4 bytes a slot more than the JAX package's
+        uint32 count."""
+        return sum(
+            f.numel() * f.element_size()
+            for f in (
+                self.rows, self.norms, self.extras, self.slot_to_id, self.live,
+                self.kind, self.left, self.right, self.ptr, self.node_table,
+                self.normals, self.aux, self.leaf_off, self.leaf_cnt,
+                self.leaf_items,
+            )
+        )
+
+    @staticmethod
+    def estimate_nbytes(metric: type[Metric], dims: int, n_items: int, n_trees: int) -> int:
+        """Pre-build estimate: item matrix + ~2 nodes per `dims`-sized
+        leaf per tree (split_after = dims, reference src/writer.rs:474-477)."""
+        sd = metric.storage_dim(dims)
+        itemsize = 4
+        items = n_items * (sd + 4) * itemsize  # rows + norm/extra/id/live
+        n_leaves = max(-(-n_items // max(dims // 2, 1)), 1)  # half-full leaves
+        nodes = 2 * n_leaves * n_trees
+        forest = nodes * (12 * itemsize) + n_leaves * n_trees * 2 * itemsize
+        forest += (nodes // 2) * sd * itemsize  # split normals
+        forest += n_items * n_trees * itemsize  # CSR membership per tree
+        return items + forest
 
     @staticmethod
     def build_np(metric: type[Metric], dims: int, store: ItemStore, forest: Forest) -> dict:

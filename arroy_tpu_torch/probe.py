@@ -318,10 +318,10 @@ def _table_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def build_tables(
     metric, dims: int, store, forest, n_trees: int, block: int, dtype: str = "bf16",
-    device="cpu",
+    *, device,
 ) -> ProbeTables:
-    """Probe tables on one device (one upload per searcher geometry;
-    cached on the DeviceIndex by `get_tables`)."""
+    """Probe tables on `device`, which the caller names (one upload per
+    searcher geometry; cached on the DeviceIndex by `get_tables`)."""
     t = build_tables_np(metric, dims, store, forest, n_trees, block, dtype)
     return ProbeTables(
         n_trees=t["n_trees"],

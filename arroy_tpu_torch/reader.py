@@ -7,9 +7,10 @@ The exact engine serves every built-in metric (``engine="auto"`` picks
 it, as in the JAX package, unless the corpus holds more items than
 ``ARROY_EXACT_MAX_ITEMS``).  ``engine="forest"`` serves the leaf-probe
 engine (``traversal="probe"``, which ``"auto"`` resolves to at 262,144
-items and above); the best-first traversal — ``traversal="xla"`` and the
-`nns(...)` query builder — is not ported yet and raises
-`NotImplementedError` (ROADMAP queue 1: forest traversal).
+items and above) or the reference's best-first traversal
+(``traversal="xla"``, and ``"auto"`` below 262,144 items).  `nns(count)`
+returns the reference's query builder, whose `by_item` / `by_vector`
+and batched `by_items` / `by_vectors` always run the traversal.
 """
 
 from __future__ import annotations
@@ -25,11 +26,11 @@ from .errors import InvalidVecDimension, MissingMetadata, NeedBuild, UnmatchingD
 from .metrics import ALL_METRICS, Metric, resolve_metric
 from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
 from .search import (
-    _TRAVERSAL_TODO,
     exact_batch,
     exact_engine_supported,
     make_exact_fn,
     make_search_fn,
+    search_batch,
 )
 from .store.database import Database, IndexState
 from .utils.itemset import ItemSet
@@ -53,9 +54,10 @@ class Stats:
 
 
 class QueryBuilder:
-    """Reference: src/reader.rs:26-124.  Its `by_*` queries run through
-    the forest traversal, which is not ported yet; `Reader.searcher`
-    uses it to resolve the candidate budget."""
+    """Reference: src/reader.rs:26-124.  Its `by_*` queries run the
+    best-first forest traversal (`search.search_batch`) with the
+    per-candidate exact re-score; `Reader.searcher` also uses it to
+    resolve the candidate budget."""
 
     def __init__(self, reader: "Reader", count: int):
         self._reader = reader
@@ -94,17 +96,60 @@ class QueryBuilder:
         )
         return search_k * mult
 
-    def by_item(self, item: int):
-        raise NotImplementedError(_TRAVERSAL_TODO)
+    # -- single-query API (arroy parity) --------------------------------
+    def by_item(self, item: int) -> Optional[list[tuple[int, float]]]:
+        return self.by_items(np.asarray([item], dtype=np.int64))[0]
 
-    def by_items(self, items):
-        raise NotImplementedError(_TRAVERSAL_TODO)
+    def by_vector(self, vector) -> list[tuple[int, float]]:
+        vector = np.asarray(vector, dtype=np.float32)
+        if vector.ndim != 1:
+            raise InvalidVecDimension(self._reader.dimensions(), int(np.prod(vector.shape)))
+        return self.by_vectors(vector[None, :])[0]
 
-    def by_vector(self, vector):
-        raise NotImplementedError(_TRAVERSAL_TODO)
+    # -- batched API -----------------------------------------------------
+    def by_items(self, items) -> list[Optional[list[tuple[int, float]]]]:
+        """One result list per id; ``None`` for an id that is not in the
+        index.  The query is the item's stored leaf (its norm and extra)."""
+        r = self._reader
+        items = np.asarray(items, dtype=np.int64)
+        st = r._state
+        present = np.asarray([int(i) in st.store for i in items], bool)
+        if not present.any():
+            return [None] * len(items)
+        slots = st.store.slots_of(items[present].astype(np.uint32))
+        qv = st.store.rows()[slots]
+        qn = st.store.norms()[slots]
+        qe = st.store.extras()[slots]
+        qf = qe if r.metric.has_extra else np.ones(len(slots), np.float32)
+        res = iter(self._run(qv, qn, qe, qf))
+        return [next(res) if p else None for p in present]
 
-    def by_vectors(self, vectors):
-        raise NotImplementedError(_TRAVERSAL_TODO)
+    def by_vectors(self, vectors) -> list[list[tuple[int, float]]]:
+        r = self._reader
+        vectors = np.asarray(vectors, dtype=np.float32)
+        if vectors.ndim != 2 or vectors.shape[1] != r.dimensions():
+            raise InvalidVecDimension(
+                r.dimensions(), int(vectors.shape[-1] if vectors.ndim else 0)
+            )
+        qv = r.metric.encode_np(vectors)
+        # by_vector builds a fresh leaf via new_header (reference:
+        # src/reader.rs:64-75): norm from the codec, extra = 0
+        qn = r.metric.item_norms_np(qv, r.dimensions())
+        qe = np.zeros(len(qv), np.float32)
+        qf = np.zeros(len(qv), np.float32) if r.metric.has_extra else np.ones(len(qv), np.float32)
+        return self._run(qv, qn, qe, qf)
+
+    def _run(self, qv, qn, qe, qf) -> list[list[tuple[int, float]]]:
+        r = self._reader
+        if self._count <= 0 or r._state.metadata is None or len(r._state.metadata.items) == 0:
+            return [[] for _ in range(len(qv))]
+        filter_slots = None
+        if self._candidates is not None:
+            inter = self._candidates.intersection(ItemSet.from_sorted(r._state.metadata.items.ids))
+            filter_slots = r._state.store.slots_of(inter.ids) if len(inter) else np.empty(0, np.int64)
+        return _as_lists(*search_batch(
+            r._device(), qv, qn, qe, qf, self._count, self._effective_search_k(), filter_slots
+        ))
 
 
 def _as_lists(ids: np.ndarray, dists: np.ndarray) -> list[list[tuple[int, float]]]:
@@ -124,14 +169,18 @@ class Searcher:
       built-in metric up to ``ARROY_EXACT_MAX_ITEMS`` items) scores
       every item; ``precision`` picks the mode (see `search.make_exact_fn`).
     - ``"forest"`` serves the `search_k` candidate budget through the
-      forest (`search.make_search_fn`): the leaf-probe engine
-      (``traversal="probe"``, or ``"auto"`` at 262,144+ items; tuned by
-      ``probe_trees``, ``probe_block`` and ``probe_dtype``) or, when the
-      filter pool fits the budget, an exact re-score of the whole pool
-      (``rescore`` picks the per-candidate or the matmul re-score).
+      forest (`search.make_search_fn`): the reference's best-first
+      traversal (``traversal="xla"``, or ``"auto"`` under 262,144 items),
+      the leaf-probe engine (``traversal="probe"``, or ``"auto"`` at
+      262,144+ items; tuned by ``probe_trees``, ``probe_block`` and
+      ``probe_dtype``) or, when the filter pool fits the budget, an exact
+      re-score of the whole pool.  ``rescore`` picks how the traversal's
+      candidates are re-scored: ``"exact"`` per candidate, ``"auto"`` by
+      a matmul over every item once the candidates outnumber the corpus
+      (streamed in chunks past the [B, M] matrix budget).
 
     ``route`` names the path the searcher took, e.g. "fused_select",
-    "bq_matrix" or "probe".
+    "bq_matrix", "probe" or "traversal".
     """
 
     def __init__(
@@ -142,6 +191,7 @@ class Searcher:
         traversal: str = "auto",
         engine: str = "auto",
         precision: str = "auto",
+        multipop="auto",
         probe_trees="auto",
         probe_block="auto",
         probe_dtype="auto",
@@ -177,7 +227,7 @@ class Searcher:
         elif engine == "forest":
             self.device_fn, self.route = make_search_fn(
                 dev, qb._count, qb._effective_search_k(), filter_slots,
-                rescore=rescore, traversal=traversal, state=reader._state,
+                rescore=rescore, traversal=traversal, multipop=multipop, state=reader._state,
                 probe_trees=probe_trees, probe_block=probe_block, probe_dtype=probe_dtype,
             )
         else:
@@ -292,10 +342,14 @@ class Reader:
         ``search_k`` and ``oversampling`` set the forest engine's
         candidate budget as `nns(...)` does (reference:
         src/reader.rs:330-335).  ``multipop`` is the best-first
-        traversal's knob; it is accepted, as in the JAX package, and has
-        no effect until the traversal is ported."""
+        traversal's pops per step: 1 (what ``"auto"`` means unless
+        ``ARROY_MULTIPOP`` says otherwise) is the reference's strict
+        order; the multi-pop variant is not ported and raises."""
         if self.metric not in ALL_METRICS:
-            raise NotImplementedError(_TRAVERSAL_TODO)
+            raise NotImplementedError(
+                f"custom metric {self.metric.name!r}: register_metric is not ported "
+                "(ROADMAP queue 1 item 5)"
+            )
         qb = QueryBuilder(self, count)
         if search_k is not None:
             qb.search_k(search_k)
@@ -305,8 +359,8 @@ class Reader:
             qb.candidates(candidates)
         return Searcher(
             self, qb, rescore=rescore, traversal=traversal, engine=engine,
-            precision=precision, probe_trees=probe_trees, probe_block=probe_block,
-            probe_dtype=probe_dtype,
+            precision=precision, multipop=multipop, probe_trees=probe_trees,
+            probe_block=probe_block, probe_dtype=probe_dtype,
         )
 
     # -- exact search oracle --------------------------------------------

@@ -1,10 +1,21 @@
-"""The serving engines: exact (brute force) and the forest dispatch.
+"""The serving engines: exact (brute force) and the forest engine.
 
 Counterpart of `arroy_tpu/search.py`: `make_exact_fn`, `exact_batch`
-and their stage functions, and of the forest engine `make_search_fn`
-up to its probe dispatch (the empty index, the filter-pool shortcut with
-its re-score family, and the leaf-probe engine of `probe.py`); the
-best-first traversal raises `NotImplementedError`.
+and their stage functions, and the forest engine `make_search_fn` with
+`search_batch` (the empty index, the filter-pool shortcut, the leaf-probe
+engine of `probe.py`, and the best-first traversal with its two-tier
+budget, leaf-log expansion and three re-score modes).  The multi-pop
+traversal variant is not ported.
+
+The best-first traversal pops a max-queue seeded with every tree root at
++inf, descends split planes pushing children at ``min(parent, ∓margin)``
+and collects leaf windows until `search_k` candidates are in (reference:
+src/reader.rs:317-401).  The JAX package runs one `lax.while_loop` per
+query under `vmap`; here the queue is a [B, q_cap] tensor and each
+batched pop touches one lane per query by indexing.  A per-query
+``active`` mask freezes finished queries exactly as the vmapped loop
+does, and the host reads the batch's "any still active" flag once every
+`POP_BLOCK` pops, never once a pop.
 
 The exact engine's modes score every live
 item of the corpus and returns the top-k under the reference's exact
@@ -36,7 +47,8 @@ import os
 import numpy as np
 import torch
 
-from .device import DeviceIndex
+from .device import DeviceIndex, _to_device
+from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
 from .ops.bq_kernels import bq_hamming_matrix
 from .ops.binary import WORD_BITS
 from .ops.fused_select import DEAD_KEY_MAX, DEFAULT_BM, DEFAULT_GP, fused_block_select
@@ -100,6 +112,33 @@ def _finish(metric, dims, k, d, slot_to_id, cand=None):
     return ids, out_d
 
 
+def _matmul_distance(metric, dots, aux, qv, qn):
+    """Distances from the [B, n] f32 dots of dot-decomposable metrics:
+    euclidean x² - 2q·x + q² (``aux`` = x²), cosine (1 - cos)/2 (``aux`` =
+    the item norms), dot-product -q·x.  The euclidean form cancels, so
+    its near-zero distances carry f32 noise."""
+    if metric.name == "euclidean":
+        q2 = torch.sum(qv * qv, dim=1)
+        return torch.clamp(aux[None, :] - 2.0 * dots + q2[:, None], min=0.0)
+    if metric.name == "cosine":
+        pnqn = aux[None, :] * qn[:, None]
+        ok = pnqn > _F32_EPS
+        cos = torch.clamp(dots / torch.where(ok, pnqn, 1.0), -1.0, 1.0)
+        return torch.where(ok, (1.0 - cos) / 2.0, 0.0)
+    return -dots  # dot-product
+
+
+def _candidate_mask(cand, m: int):
+    """[B, m] bool, True at each query's valid (>= 0) candidate slots:
+    duplicates collapse onto one column."""
+    b = cand.shape[0]
+    valid0 = cand >= 0
+    mask = torch.zeros((b, m), dtype=torch.bool, device=cand.device)
+    qrow = torch.arange(b, device=cand.device)[:, None].expand_as(cand)
+    mask[qrow[valid0], cand[valid0].long()] = True
+    return mask
+
+
 # ---------------------------------------------------------------------------
 # stage functions (one per JAX `_exact_*_impl`)
 # ---------------------------------------------------------------------------
@@ -107,17 +146,8 @@ def _finish(metric, dims, k, d, slot_to_id, cand=None):
 
 def _exact_f32_direct(metric, dims, k, x2, rows, norms, extras, slot_to_id, live, qv, qn, qe):
     """f32 matmul distances + top-4k cut + exact re-score (`_exact_f32_direct_impl`)."""
-    dots = _f32_matmul(qv, rows)
-    if metric.name == "euclidean":
-        q2 = torch.sum(qv * qv, dim=1)
-        d = torch.clamp(x2[None, :] - 2.0 * dots + q2[:, None], min=0.0)
-    elif metric.name == "cosine":
-        pnqn = norms[None, :] * qn[:, None]
-        ok = pnqn > _F32_EPS
-        cos = torch.clamp(dots / torch.where(ok, pnqn, 1.0), -1.0, 1.0)
-        d = torch.where(ok, (1.0 - cos) / 2.0, 0.0)
-    else:  # dot-product
-        d = -dots
+    aux = x2 if metric.name == "euclidean" else norms
+    d = _matmul_distance(metric, _f32_matmul(qv, rows), aux, qv, qn)
     d = torch.where(live[None, :], d, _INF)
     k2 = min(max(4 * k, 32), rows.shape[0])
     d2, cand = torch.topk(d, k2, dim=1, largest=False)
@@ -246,19 +276,9 @@ def _exact_batch(metric, dims, k, rows, norms, extras, slot_to_id, live, qv, qn,
 
 def _exact_matmul(metric, dims, k, x2, rows, norms, slot_to_id, live, qv, qn):
     """Matmul brute force for dot-decomposable metrics (`_exact_matmul`)."""
-    dots = _f32_matmul(qv, rows)
-    if metric.name == "euclidean":
-        q2 = torch.sum(qv * qv, dim=1)
-        d = torch.clamp(x2[None, :] - 2.0 * dots + q2[:, None], min=0.0)
-    elif metric.name == "cosine":
-        pnqn = norms[None, :] * qn[:, None]
-        ok = pnqn > _F32_EPS
-        cos = torch.clamp(dots / torch.where(ok, pnqn, 1.0), -1.0, 1.0)
-        d = torch.where(ok, (1.0 - cos) / 2.0, 0.0)
-    else:
-        d = -dots
-    d = torch.where(live[None, :], d, _INF)
-    return _finish(metric, dims, k, d, slot_to_id)
+    aux = x2 if metric.name == "euclidean" else norms
+    d = _matmul_distance(metric, _f32_matmul(qv, rows), aux, qv, qn)
+    return _finish(metric, dims, k, torch.where(live[None, :], d, _INF), slot_to_id)
 
 
 # ---------------------------------------------------------------------------
@@ -403,11 +423,20 @@ _RESCORE_MATRIX_BYTES = 1 << 30
 #: forest-engine traversal="auto" serves the leaf-probe engine at and
 #: above this corpus size (the JAX package's policy, kept as it is)
 _PROBE_MIN_ITEMS = 262_144
+#: item-chunk floor of the streamed matmul re-score (see `_scan_chunk`)
+_EXACT_SCAN_CHUNK = 65_536
+#: optimistic pop budget of the two-tier traversal, in units of EXPECTED
+#: leaf pops (search_k / mean leaf size), plus a pad (the JAX package's
+#: values): a truncated query sends its batch to the full budget
+_SMALL_POPS_MULT = 32
+_SMALL_POPS_PAD = 256
+#: pops the traversal runs between two host reads of the batch's "any
+#: query still active" flag
+POP_BLOCK = 16
 
-_TRAVERSAL_TODO = (
-    "the forest traversal is not ported yet (ROADMAP queue 1: forest "
-    "traversal and nns()); use searcher(engine='exact'), or "
-    "engine='forest' with traversal='probe'"
+_MULTIPOP_TODO = (
+    "multipop={} asks for the multi-pop traversal, which is not ported "
+    "(ROADMAP queue 1 item 1: multipop stays unported); use multipop=1"
 )
 
 
@@ -448,24 +477,51 @@ def _rescore_matmul(metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, 
     a sort.  Ranking-equivalent to the exact re-score; euclidean distances
     carry matmul-cancellation noise near zero.  f32 dot-decomposable
     metrics only (`rescore_mode` sends the others to `_rescore_batch`)."""
-    b = cand.shape[0]
-    m = rows.shape[0]
-    valid0 = cand >= 0
-    mask = torch.zeros((b, m), dtype=torch.bool, device=rows.device)
-    qrow = torch.arange(b, device=rows.device)[:, None].expand_as(cand)
-    mask[qrow[valid0], cand[valid0].long()] = True
-    dots = _f32_matmul(qv, rows)
-    if metric.name == "euclidean":
-        q2 = torch.sum(qv * qv, dim=1)
-        d = torch.clamp(_row_sq(rows)[None, :] - 2.0 * dots + q2[:, None], min=0.0)
-    elif metric.name == "cosine":
-        pnqn = norms[None, :] * qn[:, None]
-        ok = pnqn > _F32_EPS
-        cos = torch.clamp(dots / torch.where(ok, pnqn, 1.0), -1.0, 1.0)
-        d = torch.where(ok, (1.0 - cos) / 2.0, 0.0)
-    else:  # dot-product
-        d = -dots
+    mask = _candidate_mask(cand, rows.shape[0])
+    aux = _row_sq(rows) if metric.name == "euclidean" else norms
+    d = _matmul_distance(metric, _f32_matmul(qv, rows), aux, qv, qn)
     return _finish(metric, dims, k, torch.where(mask, d, _INF), slot_to_id)
+
+
+def _rescore_matmul_scan(metric, dims, k, chunk, slot_to_id, rows_p, aux_p, cand, qv, qn, qe):
+    """Chunked matmul re-score for corpora past the [B, M] matrix budget
+    (`_rescore_matmul_scan_impl`): the candidate mask of `_rescore_matmul`,
+    but the distance matrix is streamed [B, chunk] at a time, each chunk
+    keeps its top-kk, one `topk` merges the stacked winners, and a final
+    per-pair pass re-scores them exactly (matmul distances carry f32
+    cancellation noise).  ``rows_p`` / ``aux_p`` are the rows and the
+    per-item term (x² for euclidean, the norm for cosine) zero-padded to a
+    multiple of `chunk`.  The JAX package cuts each chunk with
+    `approx_max_k`; `topk` here is exact."""
+    m = rows_p.shape[0]
+    mask = _candidate_mask(cand, m)
+    kk = min(max(_next_pow2(8 * k), 64), chunk)
+    all_d, all_i = [], []
+    for base in range(0, m, chunk):
+        dots = _f32_matmul(qv, rows_p[base : base + chunk])
+        d = _matmul_distance(metric, dots, aux_p[base : base + chunk], qv, qn)
+        d = torch.where(mask[:, base : base + chunk], d, _INF)
+        dc, ic = torch.topk(d, kk, dim=1, largest=False)
+        all_d.append(dc)
+        all_i.append(ic + base)
+    best_d, pos = torch.topk(torch.cat(all_d, dim=1), kk, dim=1, largest=False)
+    best_i = torch.gather(torch.cat(all_i, dim=1), 1, pos)
+    # final exact pass over the kk winners (per-pair reference formulas)
+    zeros = torch.zeros_like(best_d)
+    xn = aux_p[best_i] if metric.name == "cosine" else zeros
+    d_exact = metric.built_distance(
+        qv[:, None, :], qn[:, None], qe[:, None], rows_p[best_i], xn, zeros
+    )
+    d_exact = torch.where(best_d < _INF, d_exact, _INF)
+    kf = min(k, kk)
+    out_d, pos = torch.topk(d_exact, kf, dim=1, largest=False)
+    cand_f = torch.gather(best_i, 1, pos)
+    out_ids = slot_to_id[torch.clamp(cand_f, max=slot_to_id.shape[0] - 1)]
+    out_d = torch.where(out_d < _INF, metric.normalized_distance(out_d, dims), float("nan"))
+    if kf < k:
+        out_ids = torch.nn.functional.pad(out_ids, (0, k - kf))
+        out_d = torch.nn.functional.pad(out_d, (0, k - kf), value=float("nan"))
+    return out_ids, out_d
 
 
 def rescore_mode(metric, b: int, cap: int, m: int, want: str = "auto") -> str:
@@ -481,7 +537,9 @@ def rescore_mode(metric, b: int, cap: int, m: int, want: str = "auto") -> str:
         return "matmul"
     if b * m <= _RESCORE_MASK_BYTES:
         # past the [B, M] matrix budget: the traversal streams the matrix
-        # in chunks (not ported yet; the filter shortcut re-scores exactly)
+        # in chunks (`_rescore_matmul_scan`), materializing only the
+        # 1-byte candidate mask at full width; the filter-pool shortcut,
+        # as in the JAX package, re-scores per candidate instead
         return "matmul_scan"
     return "exact"
 
@@ -505,6 +563,331 @@ def traversal_mode(idx: DeviceIndex, want: str = "auto") -> str:
     return "xla"
 
 
+def resolve_multipop(want="auto") -> int:
+    """Pops per traversal step: ``"auto"`` reads ``ARROY_MULTIPOP`` and
+    otherwise means 1, the reference's strict best-first order."""
+    if want is None or want == "auto":
+        env = os.environ.get("ARROY_MULTIPOP")
+        return max(int(env), 1) if env is not None else 1
+    return max(int(want), 1)
+
+
+def pops_budget(idx: DeviceIndex, search_k: int, exhaustive: bool, selectivity: float = 1.0) -> int:
+    """Static pop bound for the traversal loop (the JAX package's, as it is).
+
+    Unfiltered, every non-empty leaf pop yields >= 1 candidate, so the
+    structure bounds the pops: every split once, the smallest leaves
+    first, every empty or FREE row once.  With a candidate filter only a
+    ``selectivity`` fraction of each window counts toward search_k, so
+    the budget scales by 1/selectivity, bounded by the whole forest."""
+    t = max(len(idx.roots), 1)
+    if exhaustive or search_k >= idx.n_items:
+        return idx.n_nodes + t
+    sel = min(max(float(selectivity), 1e-9), 1.0)
+    budget = min(idx.n_nodes + t, 2 * t + int(np.ceil(2.0 * search_k / sel)) + 64)
+    if sel >= 1.0 and idx.leaf_cum_np is not None:
+        tight = idx.n_splits + idx.max_leaf_pops(search_k) + idx.n_dead_pops + t + 8
+        budget = min(budget, tight)
+    return budget
+
+
+def _scan_chunk(batch: int) -> int:
+    """Item-chunk width of the streamed re-score: the largest pow2 multiple
+    of `_EXACT_SCAN_CHUNK` whose [batch, chunk] distance block stays within
+    half the score-matrix budget."""
+    c = _EXACT_SCAN_CHUNK
+    while batch * (c * 2) * 4 <= _EXACT_DOTS_BYTES // 2:
+        c *= 2
+    return c
+
+
+def _traverse_batch(
+    margins, node_table, leaf_items, roots, search_k, search_k_dyn, pmax, w,
+    q_cap=None, l_cap=None, filter_words=None,
+):
+    """The best-first pop loop of a query batch (`_traverse_impl` with
+    ``expand=False``: its `one` body, or `one_filtered` when
+    ``filter_words`` is given).
+
+    ``margins`` [B, S] hold every query's margin against every split plane
+    (`Metric.margin_matrix`), so the loop never touches the d-wide
+    normals.  Returns ``(out, pops, n_cand)``, each [B]-leading int64:
+    unfiltered, ``out`` is the [B, l_cap] leaf log (the leaf index of each
+    non-empty window popped, in pop order; the tail slot holds their
+    count, entries past it are 0); filtered (``filter_words``: the
+    candidate bitmap as int32 words), ``out`` is the [B, search_k + w]
+    buffer of filter-accepted slots, -1 padded.
+
+    ``q_cap`` must hold every push, ``t + min(pmax, n_splits)`` lanes or
+    more (a split node has one parent, so it is pushed at most once), and
+    ``search_k_dyn <= search_k``.  Finished queries are frozen by the
+    per-query ``active`` mask, so pops past their end change nothing."""
+    b, s_rows = margins.shape
+    dev = margins.device
+    t = int(roots.shape[0])
+    q_cap = t + pmax if q_cap is None else q_cap
+    l_cap = min(search_k, pmax) + 1 if l_cap is None else l_cap
+    if search_k_dyn > search_k:
+        raise ValueError(f"search_k_dyn {search_k_dyn} > search_k {search_k}")
+    cap = search_k + w
+    # the queue; lane q_cap takes the masked-off writes and is never read
+    # (every read goes through the [:, :q_cap] views).  Per-query state is
+    # kept as [B, 1] columns, so each lane is read with `gather` and
+    # written with `scatter_`: O(B) work a pop, one op each.
+    pq_dist = torch.full((b, q_cap + 1), -_INF, device=dev)
+    pq_node = torch.zeros((b, q_cap + 1), dtype=torch.int64, device=dev)
+    pq_dist[:, :t] = _INF
+    pq_node[:, :t] = roots
+    dist_v, node_v = pq_dist[:, :q_cap], pq_node[:, :q_cap]
+    n_pushed = torch.full((b, 1), t, dtype=torch.int64, device=dev)
+    n_cand = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    pops = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    filtered = filter_words is not None
+    if filtered:
+        w_iota = torch.arange(w, device=dev)
+        targets = (w_iota + 1).expand(b, w).contiguous()
+        cand = torch.full((b, cap + 1), -1, dtype=torch.int64, device=dev)  # column cap: trash
+    else:
+        leaf_log = torch.zeros((b, l_cap), dtype=torch.int64, device=dev)
+        n_leaf = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+
+    def running():
+        return (n_cand < search_k_dyn) & (pops < pmax)
+
+    # every active pop adds 1 to `pops` or sets it to pmax: pmax steps end
+    # every query
+    done = 0
+    while done < pmax:
+        steps = min(POP_BLOCK, pmax - done)
+        for _ in range(steps):
+            active = running()
+            # max-queue pop: max dist, ties to the larger node id, then the
+            # first lane (BinaryHeap<(OrderedFloat, NodeId)>, reference
+            # src/reader.rs:342); argmax returns the first maximal index
+            m = dist_v.amax(dim=1, keepdim=True)
+            at_m = dist_v == m
+            nid = torch.where(at_m, node_v, -1).amax(dim=1, keepdim=True)
+            i = (at_m & (node_v == nid)).to(torch.uint8).argmax(dim=1, keepdim=True)
+            # kind, left, right, ptr, leaf_off, leaf_cnt
+            row = node_table.index_select(0, nid.view(-1)).long()
+            knd, p = row[:, 0:1], row[:, 3:4]
+            alive = m > -_INF
+            go = active & alive
+            is_leaf = go & (knd == KIND_LEAF)
+            # FREE rows (deleted nodes, sharding padding) pop as no-ops so a
+            # dangling id drains the queue instead of spinning on it
+            is_split = go & (knd != KIND_LEAF) & (knd != KIND_FREE)
+            cnt = torch.where(is_leaf, row[:, 5:6], 0)
+            if filtered:
+                # the leaf's window compacted to its accepted items (the
+                # accepted items of a leaf are not contiguous in the CSR,
+                # and only they count toward search_k, reference
+                # src/reader.rs:354-360).  leaf_items ends in w entries of
+                # padding, so off + w never runs past it (where the JAX
+                # package's dynamic_slice would clamp the start).
+                win = leaf_items.take(row[:, 4:5] + w_iota).long()
+                slot_c = win.clamp(min=0)
+                bit = (filter_words.take(slot_c >> 5) >> (slot_c & 31)) & 1
+                valid = (w_iota < cnt) & (bit == 1)  # none unless is_leaf
+                csum = valid.cumsum(dim=1)
+                n_valid = csum[:, -1:]
+                src = torch.searchsorted(csum, targets).clamp(max=w - 1)
+                pos = torch.where(w_iota < n_valid, n_cand + w_iota, cap)
+                cand.scatter_(1, pos, torch.gather(win, 1, src))
+                n_cand += n_valid
+            else:
+                # log the window's CSR row (cnt > 0 only for a leaf pop);
+                # the windows are expanded after the loop (`_expand_log`)
+                log_it = (cnt > 0) & (n_leaf < l_cap - 1)
+                leaf_log.scatter_(1, torch.where(log_it, n_leaf, l_cap - 1), p)
+                n_leaf += log_it
+                n_cand += cnt
+            # split: the precomputed margin; the left child takes the popped
+            # lane, the right one is pushed at n_pushed
+            margin = torch.gather(margins, 1, p.clamp(0, s_rows - 1))
+            margin = torch.where(knd == KIND_SPLIT_NONE, 0.0, margin)
+            pq_dist.scatter_(
+                1, torch.where(go, i, q_cap), torch.where(is_split, torch.minimum(m, -margin), -_INF)
+            )
+            pq_node.scatter_(1, torch.where(is_split, i, q_cap), row[:, 1:2])
+            at = torch.where(is_split, n_pushed, q_cap)
+            pq_dist.scatter_(1, at, torch.minimum(m, margin))
+            pq_node.scatter_(1, at, row[:, 2:3])
+            n_pushed += is_split
+            pops += go
+            pops.masked_fill_(active & ~alive, pmax)  # an empty queue ends the query
+        done += steps
+        if not bool(running().any()):  # the one host sync of a block
+            break
+    pops, n_cand = pops.view(-1), n_cand.view(-1)
+    if filtered:
+        return cand[:, :cap], pops, n_cand
+    leaf_log[:, l_cap - 1] = n_leaf.view(-1)
+    return leaf_log, pops, n_cand
+
+
+def _expand_log(log, leaf_off, leaf_cnt, leaf_items, cap):
+    """Leaf logs [B, l_cap] → [B, cap] candidate slots, -1 padded
+    (`_expand_one_log` over a batch).
+
+    Run-length decode of the CSR windows the traversal popped: row j of a
+    log covers output positions [ends[j-1], ends[j]), so scattering each
+    row's count at its end position and its CSR-offset delta at its begin
+    position, then prefix-summing, gives every output position its row's
+    output start and CSR offset in O(cap).  `scatter_add_` accumulates
+    duplicate positions (stale rows, ends clamped to the trash column)."""
+    b, l_cap = log.shape
+    dev = log.device
+    live = torch.arange(l_cap, device=dev)[None, :] < log[:, l_cap - 1 :]
+    li = log.clamp(0, leaf_cnt.shape[0] - 1)  # the tail slot holds a count
+    counts = torch.where(live, leaf_cnt[li].long(), 0)
+    offs = torch.where(live, leaf_off[li].long(), 0)
+    ends = counts.cumsum(dim=1)
+    begins = ends - counts
+    acc = torch.zeros((b, cap + 1), dtype=torch.int64, device=dev)
+    acc.scatter_add_(1, ends.clamp(max=cap), counts)  # counts == ends[j] - ends[j-1]
+    start = acc[:, :cap].cumsum(dim=1)
+    d_off = torch.where(live, offs - torch.nn.functional.pad(offs[:, :-1], (1, 0)), 0)
+    acc2 = torch.zeros((b, cap + 1), dtype=torch.int64, device=dev)
+    acc2.scatter_add_(1, begins.clamp(max=cap), d_off)
+    off = acc2[:, :cap].cumsum(dim=1)
+    cap_iota = torch.arange(cap, device=dev)
+    src = (off + (cap_iota - start)).clamp(0, leaf_items.shape[0] - 1)
+    total = ends[:, -1:].clamp(max=cap)
+    return torch.where(cap_iota < total, leaf_items[src].long(), -1)
+
+
+class TraversalFn:
+    """A bound best-first traversal searcher (`make_search_fn`'s traversal
+    route): ``fn(qv, qn, qe, qf) -> (ids [B, k] int64, dists [B, k])`` on
+    the index's device, in four stages — `margins`, `walk` (the pop loop,
+    two-tier when unfiltered and the small budget is under half the full
+    one), `expand` and `rescore`.
+
+    Geometry (host ints): ``pmax``, ``pmax_small``, ``two_tier``,
+    ``q_cap_small``, ``q_cap``, ``l_cap``.  ``fallbacks`` counts batches
+    that the small tier truncated and the full budget re-ran;
+    ``last_pops`` [B] and ``last_small_ok`` describe the last batch."""
+
+    def __init__(self, idx: DeviceIndex, count: int, sk_exact: int, filter_slots, rescore: str):
+        self.idx = idx
+        self.rescore_want = rescore
+        has_filter = filter_slots is not None
+        if has_filter:
+            words = np.zeros(max((idx.cap + 31) // 32, 1), np.uint32)
+            fs = np.asarray(filter_slots, dtype=np.int64)
+            np.bitwise_or.at(words, fs >> 5, np.uint32(1) << (fs & 31).astype(np.uint32))
+            self.filter_words = torch.from_numpy(words.view(np.int32)).to(idx.device)
+            selectivity = len(filter_slots) / max(idx.n_items, 1)
+        else:
+            self.filter_words = None
+            selectivity = 1.0
+        self.sk_exact = sk_exact
+        self.sk = _next_pow2(sk_exact)
+        self.cap = self.sk + idx.max_leaf
+        self.k = max(min(_next_pow2(count), self.cap), 1)
+        self.pmax = pops_budget(idx, sk_exact, False, selectivity)
+        t = max(len(idx.roots), 1)
+        # tight widths from the index structure (capacity only, results
+        # unchanged): a push per split pop; non-empty leaf pops bounded by
+        # the smallest-leaves-first worst case
+        self.q_cap = t + min(self.pmax, idx.n_splits) + 1
+        self.l_cap = min(self.sk, self.pmax, idx.max_leaf_pops(self.sk)) + 1
+        # two tiers: the per-pop cost grows with the queue width, and the
+        # always-safe q_cap is 10-100x what a real query needs, so an
+        # optimistic pass runs at an expected budget (mean-sized leaves,
+        # x32) and a truncated batch re-runs at the full one
+        if idx.leaf_cum_np is not None and len(idx.leaf_cum_np):
+            mean_leaf = float(idx.leaf_cum_np[-1]) / len(idx.leaf_cum_np)
+        else:
+            mean_leaf = float(max(idx.max_leaf, 1))
+        exp_leaf_pops = int(np.ceil(sk_exact / max(mean_leaf, 1.0)))
+        self.pmax_small = min(self.pmax, _SMALL_POPS_MULT * exp_leaf_pops + _SMALL_POPS_PAD)
+        self.two_tier = (not has_filter) and self.pmax_small < self.pmax // 2
+        self.q_cap_small = t + min(self.pmax_small, idx.n_splits) + 1
+        self.roots = torch.tensor(idx.roots, dtype=torch.int64, device=idx.device)
+        self.fallbacks = 0
+        self.last_pops = None
+        self.last_small_ok = None
+        self._scan_operands: dict = {}
+
+    def margins(self, qv, qf):
+        idx = self.idx
+        return idx.metric.margin_matrix(idx.normals, idx.aux, qv, qf)
+
+    def traverse(self, margins, pmax: int, q_cap: int):
+        """One pop loop at the given budget (`_traverse_batch`)."""
+        idx = self.idx
+        return _traverse_batch(
+            margins, idx.node_table, idx.leaf_items, self.roots, self.sk, self.sk_exact,
+            pmax, idx.max_leaf, q_cap=q_cap, l_cap=self.l_cap, filter_words=self.filter_words,
+        )
+
+    def walk(self, margins):
+        """The pop loop of a batch: leaf logs, or filtered candidates."""
+        if self.two_tier:
+            out, pops, n_cand = self.traverse(margins, self.pmax_small, self.q_cap_small)
+            # one host read a batch (the JAX package decides on the device
+            # with lax.cond)
+            self.last_small_ok = not bool(((pops >= self.pmax_small) & (n_cand < self.sk_exact)).any())
+            if not self.last_small_ok:
+                self.fallbacks += 1
+                out, pops, _ = self.traverse(margins, self.pmax, self.q_cap)
+        else:
+            out, pops, _ = self.traverse(margins, self.pmax, self.q_cap)
+        self.last_pops = pops
+        return out
+
+    def expand(self, out):
+        """Leaf logs → [B, cap] candidate slots (filtered output as it is)."""
+        if self.filter_words is not None:
+            return out
+        idx = self.idx
+        return _expand_log(out, idx.leaf_off, idx.leaf_cnt, idx.leaf_items, self.cap)
+
+    def scan_operands(self, chunk: int):
+        """Rows and per-item term padded to a multiple of `chunk`, cached."""
+        if chunk not in self._scan_operands:
+            idx = self.idx
+            if idx.metric.name == "euclidean":
+                aux = _row_sq(idx.rows)
+            elif idx.metric.name == "cosine":
+                aux = idx.norms
+            else:
+                aux = torch.zeros(idx.cap, dtype=torch.float32, device=idx.device)
+            pad = -(-idx.cap // chunk) * chunk - idx.cap
+            self._scan_operands[chunk] = (
+                torch.nn.functional.pad(idx.rows, (0, 0, 0, pad)),
+                torch.nn.functional.pad(aux, (0, pad)),
+            )
+        return self._scan_operands[chunk]
+
+    def rescore_mode(self, b: int) -> str:
+        return rescore_mode(self.idx.metric, b, self.cap, self.idx.n_items, self.rescore_want)
+
+    def rescore(self, cand, qv, qn, qe):
+        idx = self.idx
+        mode = self.rescore_mode(int(qv.shape[0]))
+        if mode == "matmul_scan":
+            chunk = _scan_chunk(int(qv.shape[0]))
+            rows_p, aux_p = self.scan_operands(chunk)
+            return _rescore_matmul_scan(
+                idx.metric, idx.dims, self.k, chunk, idx.slot_to_id, rows_p, aux_p, cand, qv, qn, qe
+            )
+        impl = _rescore_matmul if mode == "matmul" else _rescore_batch
+        return impl(
+            idx.metric, idx.dims, self.k, idx.rows, idx.norms, idx.extras, idx.slot_to_id,
+            cand, qv, qn, qe,
+        )
+
+    def run(self, margins, qv, qn, qe):
+        """Everything after the margins (a test hands in another's margins)."""
+        return self.rescore(self.expand(self.walk(margins)), qv, qn, qe)
+
+    def __call__(self, qv, qn, qe, qf):
+        return self.run(self.margins(qv, qf), qv, qn, qe)
+
+
 def make_search_fn(
     idx: DeviceIndex,
     count: int,
@@ -512,6 +895,7 @@ def make_search_fn(
     filter_slots: np.ndarray | None = None,
     rescore: str = "exact",
     traversal: str = "auto",
+    multipop="auto",
     state=None,
     probe_trees="auto",
     probe_block="auto",
@@ -520,9 +904,11 @@ def make_search_fn(
     """The forest engine's device-resident search: returns ``(fn, route)``
     where ``fn(qv, qn, qe, qf) -> (ids, dists)`` takes and returns tensors
     on the index's device, and ``route`` is "empty", "filter_pool" (the
-    filter pool fits the candidate budget and is re-scored whole) or
-    "probe".  The best-first traversal raises `NotImplementedError`.
-    ``state`` is the host snapshot the probe builds its tables from."""
+    filter pool fits the candidate budget and is re-scored whole), "probe"
+    or "traversal" (the best-first pop loop, a `TraversalFn`).  ``state``
+    is the host snapshot the probe builds its tables from; without it the
+    probe is never chosen.  ``multipop`` must resolve to 1: the multi-pop
+    variant is not ported and raises `NotImplementedError`."""
     if idx.n_items == 0 or not idx.roots:
         def empty_fn(qv, qn, qe, qf):
             b = qv.shape[0]
@@ -570,7 +956,10 @@ def make_search_fn(
             filter_slots=filter_slots,
         )
         return fn, "probe"
-    raise NotImplementedError(_TRAVERSAL_TODO)
+    pops_per_step = resolve_multipop(multipop)
+    if pops_per_step > 1:
+        raise NotImplementedError(_MULTIPOP_TODO.format(pops_per_step))
+    return TraversalFn(idx, count, sk_exact, filter_slots, rescore), "traversal"
 
 
 def _pad_count(ids, dists, count):
@@ -583,6 +972,32 @@ def _pad_count(ids, dists, count):
             [dists, np.full((dists.shape[0], pad), np.nan, dists.dtype)], axis=1
         )
     return ids, dists
+
+
+def search_batch(
+    idx: DeviceIndex, qv, qn, qe, qf, count: int, search_k: int,
+    filter_slots: np.ndarray | None,
+):
+    """Host wrapper over `make_search_fn` → numpy (ids, dists): the
+    `nns()` path.  It takes `make_search_fn`'s defaults, with no host
+    snapshot, so it always traverses (as the JAX package's does), and it
+    splits batches past 1,024 queries to bound device temporaries."""
+    b = np.asarray(qv).shape[0]
+    if idx.n_items == 0 or not idx.roots:
+        return np.zeros((b, count), np.int64), np.full((b, count), np.nan, np.float32)
+    max_b = 1024
+    if b > max_b:
+        parts = [
+            search_batch(
+                idx, qv[i : i + max_b], qn[i : i + max_b], qe[i : i + max_b],
+                qf[i : i + max_b], count, search_k, filter_slots,
+            )
+            for i in range(0, b, max_b)
+        ]
+        return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+    fn, _ = make_search_fn(idx, count, search_k, filter_slots)
+    ids, dists = fn(*(_to_device(a, idx.device) for a in (qv, qn, qe, qf)))
+    return _pad_count(ids[:, :count], dists[:, :count], count)
 
 
 def exact_batch(idx: DeviceIndex, qv, qn, qe, count: int, fast: bool = False):

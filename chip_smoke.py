@@ -33,7 +33,15 @@ exits non-zero:
    f32 block tables; 64 queries held against the same searcher on the
    CPU; then kernel 3 timed on a real selection of blocks, with the
    share of distinct blocks in the whole selection and in the probe's
-   chunks of it, and its rates on total, distinct and read bytes.
+   chunks of it, and its rates on total, distinct and read bytes;
+7. traversal slice (run inside phase 4, on its reopened index) — the
+   best-first forest traversal, which ``searcher(engine="forest")``
+   resolves to under 262,144 items: batches of 256 of phase 4's queries,
+   bench.py's search_k policy against recall@10 vs f32x1, with qps, pops
+   per batch, whether the small tier sufficed, the re-score mode and
+   CUDA-event times of its four stages; 64 queries held against the same
+   searcher on the CPU, `nns()` against the searcher, and one filtered
+   batch (10% of the ids).  It has no kernel of its own.
 
 Kernel launch counts are reset right before each main path (phases 4-5,
 and phase 6) and read right after it: every kernel of that path must have
@@ -251,10 +259,10 @@ def tie_aware_equal(ids_a, d_a, ids_b, d_b):
                 assert ia[j] == ib[j], f"id differs at a unique distance: {ia} vs {ib}"
 
 
-def probe_agree(ids_a, d_a, ids_b, d_b):
+def probe_agree(ids_a, d_a, ids_b, d_b, rtol=1e-5):
     """The card's probe against the CPU's: at most 1 differing id per row
     (a bf16 summation-order swap at the k2 cut); rows with the same ids
-    have sorted distances equal at rtol 1e-5, and every shared id its
+    have sorted distances equal at `rtol`, and every shared id its
     distance.  Returns the number of differing ids."""
     n_diff = 0
     for ia, da, ib, db in zip(ids_a, d_a, ids_b, d_b):
@@ -262,11 +270,11 @@ def probe_agree(ids_a, d_a, ids_b, d_b):
         assert diff <= 1, f"{diff} ids differ in one row: {ia} vs {ib}"
         n_diff += diff
         if diff == 0:
-            np.testing.assert_allclose(np.sort(da), np.sort(db), rtol=1e-5)
+            np.testing.assert_allclose(np.sort(da), np.sort(db), rtol=rtol)
         where = {int(i): float(v) for i, v in zip(ib, db)}
         for i, v in zip(ia, da):
             if int(i) in where:
-                np.testing.assert_allclose(v, where[int(i)], rtol=1e-5)
+                np.testing.assert_allclose(v, where[int(i)], rtol=rtol)
     return n_diff
 
 
@@ -389,7 +397,8 @@ def kernel_parity(dev, rec):
 
 
 def exact_slice(tmp, x, queries, batches):
-    """Phases 4-5: the exact engine (kernels 1 and 2)."""
+    """Phases 4-5: the exact engine (kernels 1 and 2), and phase 7 (the
+    traversal) on phase 4's index."""
     import torch
 
     from arroy_tpu_torch import Database, Reader, Writer
@@ -438,6 +447,10 @@ def exact_slice(tmp, x, queries, batches):
     fused_n = sum(fs.launches.values())
     assert fused_n >= 8, f"fused select launched {fused_n} times"
 
+    # 7. the forest traversal on the same reopened index (no kernel of its
+    # own, so it adds to no count; its exact reference is f32x1)
+    traversal_slice(f"{tmp}/euclid", r, batches[0], ref_ids[: len(batches[0])])
+
     # 5. BQ slice
     db = Database(f"{tmp}/bq", device="cuda")
     metric = "binary quantized cosine"
@@ -465,6 +478,104 @@ def exact_slice(tmp, x, queries, batches):
     gid, gd = s.device_fn(*q)
     tie_aware_equal(gid.cpu().numpy(), gd.cpu().numpy(), pid.numpy(), pd.numpy())
     say("bq", f"build {t1 - t0:.2f} s, route {s.route}, 64 queries equal the plain run (tie-aware)")
+
+
+def traversal_stages(fn, dq):
+    """One batch through the traversal's stages with CUDA events between
+    them; returns the result and the ms of margins, loop, expansion and
+    re-score."""
+    import torch
+
+    qv, qn, qe, qf = dq
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    m = fn.margins(qv, qf)
+    ev[1].record()
+    out = fn.walk(m)
+    ev[2].record()
+    cand = fn.expand(out)
+    ev[3].record()
+    res = fn.rescore(cand, qv, qn, qe)
+    ev[4].record()
+    torch.cuda.synchronize()
+    return res, [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def traversal_slice(path, r, queries, ref_ids):
+    """Phase 7: the best-first traversal at 100,000 x 768 (under 262,144
+    items, so `searcher(engine="forest")` resolves to it), batches of
+    B_PROBE, bench.py's search_k policy against recall@10 vs f32x1."""
+    import torch
+
+    from arroy_tpu_torch import Database, Reader
+
+    t_phase = time.perf_counter()
+    batches = [queries[i:i + B_PROBE] for i in range(0, len(queries), B_PROBE)]
+    sk = SEARCH_K0
+    for step in range(SK_DOUBLINGS + 1):
+        s = r.searcher(K, search_k=sk, engine="forest")  # no traversal=
+        assert s.route == "traversal", s.route
+        fn = s.device_fn
+        f0 = fn.fallbacks
+        ids, dists = (a[:, :K] for a in run_batches(s, batches, f"traversal sk={sk}"))
+        rc = recall_of(ids, ref_ids)
+        pops, small, stages = [], [], []
+        for b in batches:
+            _, ms = traversal_stages(fn, s.prepare_queries(b))
+            p = fn.last_pops.float()
+            pops.append((float(p.max()), float(p.mean())))
+            small.append(fn.last_small_ok)
+            stages.append(ms)
+        st = np.mean(stages, axis=0)
+        say("traversal", f"sk={sk}: recall@{K} vs f32x1 {rc:.4f}; pmax {fn.pmax}, pmax_small "
+            f"{fn.pmax_small}, two_tier {fn.two_tier}, q_cap_small {fn.q_cap_small}, q_cap "
+            f"{fn.q_cap}, l_cap {fn.l_cap}; pops per batch max {max(a for a, _ in pops):.0f} / mean "
+            f"{np.mean([m for _, m in pops]):.1f}; small tier sufficed in "
+            f"{sum(map(bool, small)) if fn.two_tier else 'n/a'} of {len(small)} batches "
+            f"({fn.fallbacks - f0} fallbacks in all); re-score "
+            f"{fn.rescore_mode(B_PROBE)}; stage ms (CUDA events, mean of {len(batches)}): margins "
+            f"{st[0]:.3f}, loop {st[1]:.3f}, expansion {st[2]:.3f}, re-score {st[3]:.3f}")
+        if rc >= TARGET_RECALL:
+            break
+        if step < SK_DOUBLINGS:
+            sk *= 2
+    assert rc >= TARGET_RECALL, f"traversal recall {rc} < {TARGET_RECALL} at sk={sk}"
+    res, _ = traversal_stages(fn, s.prepare_queries(batches[0]))
+    assert tuple(res[0].shape) == (B_PROBE, fn.k) and bool(torch.isfinite(res[1][:, :K]).all())
+    # the same searchers over the same state on the CPU: the default one
+    # (its matmul re-score computes d = |x|² - 2x·q + |q|², which cancels
+    # ~1,500 down to ~3.5 here, so a last-bit change in a 768-term dot
+    # moves d by up to ~5e-4 relative: rtol 1e-3) and the per-candidate
+    # exact re-score that nns() runs (rtol 1e-5)
+    t0 = time.perf_counter()
+    cpu_db = Database(path, device="cpu")
+    cpu_r = Reader.open(cpu_db.read(), 0, cpu_db, metric="euclidean")
+    ge = r.searcher(K, search_k=sk, engine="forest", rescore="exact")
+    eid, ed = (a[:, :K].cpu().numpy() for a in ge.device_fn(*ge.prepare_queries(batches[0][:64])))
+    for rescore, (gid, gd), rtol in (("auto", (ids, dists), 1e-3), ("exact", (eid, ed), 1e-5)):
+        cs = cpu_r.searcher(K, search_k=sk, engine="forest", rescore=rescore)
+        cid, cd = cs.device_fn(*cs.prepare_queries(batches[0][:64]))
+        n_diff = probe_agree(gid[:64], gd[:64], cid[:, :K].numpy(), cd[:, :K].numpy(), rtol)
+        say("traversal", f"sk={sk}, rescore {rescore} ({cs.device_fn.rescore_mode(64)}): 64 "
+            f"queries agree with the CPU run ({n_diff} ids differ, at most 1 per row; distances "
+            f"rtol {rtol:g}; {time.perf_counter() - t0:.2f} s)")
+    # nns() on one batch equals the searcher with nns()'s per-candidate re-score
+    want = ge(batches[0])
+    assert r.nns(K).search_k(sk).by_vectors(batches[0]) == want, "nns() differs from the searcher"
+    say("traversal", f"sk={sk}: nns().by_vectors equals searcher(rescore='exact') on {B_PROBE} queries")
+    # one filtered batch: 10% of the ids (at least twice search_k, so the
+    # filter pool never fits the budget and the filtered loop runs)
+    n_cand = min(max(r.n_items() // 10, 2 * sk), r.n_items())
+    cand = np.random.default_rng(5).choice(r.n_items(), n_cand, replace=False)
+    filt = r.searcher(K, search_k=sk, engine="forest", candidates=cand)
+    assert filt.route == "traversal" and filt.device_fn.filter_words is not None, filt.route
+    fids = run_batches(filt, batches[:1], f"traversal filtered {n_cand} ids sk={sk}")[0][:, :K]
+    assert set(np.unique(fids).tolist()) <= set(cand.tolist()), "filtered result outside the filter"
+    rids, _ = run_batches(r.searcher(K, engine="exact", precision="f32x1", candidates=cand),
+                          batches[:1], f"f32x1 filtered {n_cand} ids")
+    say("traversal", f"filtered {n_cand} ids sk={sk}: recall@{K} vs f32x1 over the filter "
+        f"{recall_of(fids, rids):.4f}, pops per query max {int(filt.device_fn.last_pops.max())}")
+    say("time", f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def probe_slice(tmp):

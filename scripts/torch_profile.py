@@ -7,7 +7,10 @@ Builds `chip_smoke.py`'s two configurations with the PyTorch port
 - exact: 100,000 x 768, 8 batches of 2048, searchers f32x1, bf16 and
   int8, plus the same corpus under "binary quantized cosine";
 - probe: 262,144 x 768, 8 batches of 256, bf16 and int8 block tables at
-  search_k 4000 (where both reach recall@10 0.95).
+  search_k 4000 (where both reach recall@10 0.95);
+- traversal: the exact configuration's index, 8 batches of 256, the
+  best-first traversal (`searcher(engine="forest")`) at search_k 2000,
+  4000 and 8000.
 
 For each searcher it times the 8 batches with the host clock around work
 that ends in `torch.cuda.synchronize()` (no profiler), then profiles the
@@ -15,9 +18,10 @@ same batches with `torch.profiler` and prints the device time by kernel
 (device-side events only), the device-busy total and the idle share
 (1 - busy / unprofiled wall).
 
-Run from the repository root on a machine with a card:
+Run from the repository root on a machine with a card, naming the
+slices to profile (all three by default):
 
-    python3 scripts/torch_profile.py
+    python3 scripts/torch_profile.py [exact] [probe] [traversal]
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from chip_smoke import (  # noqa: E402
 
 N_BATCHES = 8
 PROBE_SEARCH_K = 4000
+TRAVERSAL_SEARCH_K = (2000, 4000, 8000)
+SLICES = ("exact", "probe", "traversal")
 
 
 def profile(label: str, s, batches) -> None:
@@ -64,8 +70,10 @@ def profile(label: str, s, batches) -> None:
     busy = sum(e.self_device_time_total for e in ka) / 1e3
     n, b = len(dqs), len(batches[0])
     print(f"\n== {label}: route {s.route}, {n} batches of {b} ==")
+    launches = sum(e.count for e in ka) / n
     print(f"wall (no profiler) {wall / n:.3f} ms per batch, {n * b / (wall / 1e3):.1f} qps; "
-          f"device busy {busy / n:.3f} ms per batch; idle share {1 - busy / wall:.3f}")
+          f"device busy {busy / n:.3f} ms per batch; idle share {1 - busy / wall:.3f}; "
+          f"{launches:.0f} device events per batch")
     for e in sorted(ka, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms / n:8.3f} ms/batch  {100 * ms / busy:5.1f}%  x{e.count // n:<4d} {e.key[:90]}",
@@ -87,17 +95,37 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    slices = sys.argv[1:] or SLICES
+    if not set(slices) <= set(SLICES):
+        print(f"slices are {SLICES}", file=sys.stderr)
+        return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         x = make_corpus(np.random.default_rng(42), M + BATCH * N_BATCHES, D)
         batches = [x[M + i * BATCH:M + (i + 1) * BATCH] for i in range(N_BATCHES)]
-        r = build(f"{tmp}/exact", "euclidean", x[:M])
-        for prec in ("f32x1", "bf16", "int8"):
-            profile(f"exact {prec}, {M} x {D}", r.searcher(K, engine="exact", precision=prec), batches)
-        r = build(f"{tmp}/bq", "binary quantized cosine", x[:M])
-        profile(f"exact BQ cosine, {M} x {D}", r.searcher(K, engine="exact"), batches)
-        del r
+        if "exact" in slices or "traversal" in slices:
+            r = build(f"{tmp}/exact", "euclidean", x[:M])
+        if "exact" in slices:
+            for prec in ("f32x1", "bf16", "int8"):
+                profile(f"exact {prec}, {M} x {D}", r.searcher(K, engine="exact", precision=prec),
+                        batches)
+        if "traversal" in slices:
+            small = [batches[0][i:i + B_PROBE] for i in range(0, BATCH, B_PROBE)]
+            for sk in TRAVERSAL_SEARCH_K:
+                s = r.searcher(K, search_k=sk, engine="forest")
+                fn = s.device_fn
+                profile(f"traversal, search_k {sk}, pmax_small {fn.pmax_small}, q_cap_small "
+                        f"{fn.q_cap_small}, {M} x {D}", s, small)
+                print(f"  last batch: pops max {int(fn.last_pops.max())}, mean "
+                      f"{float(fn.last_pops.float().mean()):.1f}; fallbacks {fn.fallbacks}; "
+                      f"re-score {fn.rescore_mode(B_PROBE)}", flush=True)
+        if "exact" in slices:
+            r = build(f"{tmp}/bq", "binary quantized cosine", x[:M])
+            profile(f"exact BQ cosine, {M} x {D}", r.searcher(K, engine="exact"), batches)
+        if "probe" not in slices:
+            return 0
+        r = None
 
         x = make_corpus(np.random.default_rng(42), M_PROBE + B_PROBE * N_PROBE_BATCHES, D)
         batches = [x[M_PROBE + i * B_PROBE:M_PROBE + (i + 1) * B_PROBE]

@@ -9,8 +9,13 @@ Tolerances: int8 select keys/indices and hamming counts bit-equal; bf16
 select keys within 2·bm with >= 98% equal and indices equal where keys
 are (that of `tests/test_pallas_exact.py`); gather-score within
 1e-5 · Σ_d |row·q| of the plain version (the same operands, summed in
-another order).
+another order).  The forest traversal (no kernel of its own) against the
+same index searched on the CPU, on the same margins: leaf logs, pops,
+counts and filtered candidates bit-equal; results tie-aware, distances
+rtol 1e-5 with a 1e-6 floor (re-scores summed in another order).
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -332,3 +337,115 @@ def test_cuda_probe_searcher_runs_gather_score(tmp_path):
     ids, d = (np.array([[p[j] for p in row] for row in got]) for j in (0, 1))
     rids, rd = (np.array([[p[j] for p in row] for row in ref]) for j in (0, 1))
     assert recall(ids, rids) >= 0.99
+
+
+def _traversal_pair(tmp_path, metric="euclidean", m=6000, d=48):
+    """One index searched from the card and from the CPU (the same files),
+    with noisy queries (no distance in the matmul noise near zero)."""
+    dev = require_cuda()
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    q = x[:64] + 0.5 * rng.standard_normal((64, d)).astype(np.float32)
+    db = Database(str(tmp_path), device=dev)
+    w = Writer(db, 0, d, metric=metric)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(m), x)
+        w.builder(seed=2).n_trees(5).build(wtxn)
+    cpu = Database(str(tmp_path), device="cpu")
+    return (Reader.open(db.read(), 0, db, metric=metric),
+            Reader.open(cpu.read(), 0, cpu, metric=metric), q)
+
+
+def _result_arrays(res):
+    ids, d = res
+    return ids[:, :10].cpu().numpy(), d[:, :10].cpu().numpy()
+
+
+@pytest.mark.parametrize("search_k", [300, 2000])
+def test_cuda_traversal_loop_matches_cpu(tmp_path, search_k):
+    """Given the same margins, the pop loop on the card logs the same
+    leaves, pops and counts as on the CPU, bit for bit, and expands them
+    to the same candidates."""
+    gr, cr, q = _traversal_pair(tmp_path)
+    kw = dict(search_k=search_k, engine="forest", traversal="xla")
+    gs_, cs_ = gr.searcher(10, **kw), cr.searcher(10, **kw)
+    assert gs_.route == cs_.route == "traversal"
+    gfn, cfn = gs_.device_fn, cs_.device_fn
+    cq = cs_.prepare_queries(q)
+    m = cfn.margins(cq[0], cq[3])
+    for pmax, q_cap in ((gfn.pmax, gfn.q_cap), (gfn.pmax_small, gfn.q_cap_small)):
+        got = gfn.traverse(m.cuda(), pmax, q_cap)
+        want = cfn.traverse(m, pmax, q_cap)
+        for g, c in zip(got, want):
+            assert torch.equal(g.cpu(), c)
+        assert torch.equal(gfn.expand(got[0]).cpu(), cfn.expand(want[0]))
+    gq = gs_.prepare_queries(q)
+    tie_aware_equal(*_result_arrays(gfn.run(m.cuda(), *gq[:3])), *_result_arrays(cfn.run(m, *cq[:3])),
+                    rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_traversal_filtered_matches_cpu(tmp_path):
+    """The filtered loop (a filter of 20% of the items) on the card against
+    the CPU on the same margins: candidates bit-equal, results tie-aware."""
+    gr, cr, q = _traversal_pair(tmp_path)
+    cand = np.random.default_rng(1).choice(6000, 1200, replace=False)
+    kw = dict(search_k=400, engine="forest", traversal="xla", candidates=cand)
+    gfn, cfn = gr.searcher(10, **kw).device_fn, cr.searcher(10, **kw).device_fn
+    assert gfn.filter_words is not None
+    cq = cr.searcher(10, **kw).prepare_queries(q)
+    m = cfn.margins(cq[0], cq[3])
+    got, want = gfn.traverse(m.cuda(), gfn.pmax, gfn.q_cap), cfn.traverse(m, cfn.pmax, cfn.q_cap)
+    for g, c in zip(got, want):
+        assert torch.equal(g.cpu(), c)
+    gq = tuple(t.cuda() for t in cq)
+    ids, d = _result_arrays(gfn.run(m.cuda(), *gq[:3]))
+    tie_aware_equal(ids, d, *_result_arrays(cfn.run(m, *cq[:3])), rtol=1e-5, atol=1e-6)
+    assert set(ids.ravel().tolist()) <= set(cand.tolist())
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot-product"])
+def test_cuda_traversal_matmul_scan_matches_cpu(tmp_path, monkeypatch, metric):
+    """The streamed matmul re-score (forced: 1-byte matrix budget, chunks
+    of 1,024 items) on the card against the CPU, on the same margins."""
+    from arroy_tpu_torch import search as t_search
+
+    gr, cr, q = _traversal_pair(tmp_path, metric)
+    monkeypatch.setattr(t_search, "_RESCORE_MATRIX_BYTES", 1)
+    monkeypatch.setattr(t_search, "_EXACT_SCAN_CHUNK", 1024)
+    monkeypatch.setattr(t_search, "_EXACT_DOTS_BYTES", 1 << 20)
+    kw = dict(search_k=600, engine="forest", traversal="xla", rescore="auto")
+    gs_, cs_ = gr.searcher(10, **kw), cr.searcher(10, **kw)
+    assert gs_.device_fn.rescore_mode(len(q)) == "matmul_scan"
+    cq = cs_.prepare_queries(q)
+    m = cs_.device_fn.margins(cq[0], cq[3])
+    got = gs_.device_fn.run(m.cuda(), *(t.cuda() for t in cq[:3]))
+    tie_aware_equal(*_result_arrays(got), *_result_arrays(cs_.device_fn.run(m, *cq[:3])),
+                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_cuda_traversal_syncs_once_a_block(tmp_path, filtered):
+    """The pop loop reads the batch's "any query active" flag once every
+    POP_BLOCK pops and synchronizes nowhere else (PyTorch's sync debug
+    mode warns on every synchronizing call)."""
+    from arroy_tpu_torch.search import POP_BLOCK
+
+    gr, _, q = _traversal_pair(tmp_path)
+    cand = np.arange(0, 6000, 2) if filtered else None  # 3,000 ids: more than search_k
+    s = gr.searcher(10, search_k=2000, engine="forest", traversal="xla", candidates=cand)
+    assert s.route == "traversal"
+    fn = s.device_fn
+    dq = s.prepare_queries(q)
+    m = fn.margins(dq[0], dq[3])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, pops, _ = fn.traverse(m, fn.pmax, fn.q_cap)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [(w.filename, w.lineno) for w in rec
+             if str(w.message).startswith("called a synchronizing CUDA operation")]
+    assert len(syncs) == -(-int(pops.max()) // POP_BLOCK), syncs
+    assert len(set(syncs)) == 1, syncs  # all of them the block's one read

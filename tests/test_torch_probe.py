@@ -254,15 +254,17 @@ def test_probe_filtered_matches_jax(index, metric, n_cand, rescore, route):
 
 def test_traversal_auto_policy(index, monkeypatch):
     """traversal="auto" serves the probe at or above _PROBE_MIN_ITEMS;
-    below it, it resolves to the best-first traversal, which raises."""
-    _, tr, q = index("euclidean")
+    below it, and with traversal="xla", the best-first traversal, whose
+    results equal the JAX package's traversal on the same forest."""
+    jr, tr, q = index("euclidean")
     monkeypatch.delenv("ARROY_TRAVERSAL", raising=False)
     monkeypatch.setattr(t_search, "_PROBE_MIN_ITEMS", M)
     s = tr.searcher(K, search_k=600, engine="forest", probe_trees=4, probe_block=16)
     assert s.route == "probe"
     _assert_same(tr.searcher(K, **dict(PROBE, search_k=600))(q), s(q))
     monkeypatch.setattr(t_search, "_PROBE_MIN_ITEMS", M + 1)
-    with pytest.raises(NotImplementedError, match="traversal"):
-        tr.searcher(K, search_k=600, engine="forest")
-    with pytest.raises(NotImplementedError, match="traversal"):
-        tr.searcher(K, search_k=600, engine="forest", traversal="xla")
+    want = jr.searcher(K, search_k=600, engine="forest", traversal="xla", rescore="exact")(q)
+    for traversal in ("auto", "xla"):
+        s = tr.searcher(K, search_k=600, engine="forest", traversal=traversal, rescore="exact")
+        assert s.route == "traversal"
+        _assert_same(want, s(q))

@@ -5,7 +5,10 @@ sequence in both packages on one seeded 20,000 x 64 corpus.  Exact
 search does not depend on the forest, so the f32x1 results must be equal
 (tie-aware, distances rtol 1e-4) even though the forests differ; the
 port's default searcher must take the fused select and keep recall@10
->= 0.99 against them.  Also: the port imports no JAX, at any depth.
+>= 0.99 against them.  The port's forest traversal (`nns()` and
+`searcher(engine="forest")`) must return sorted results whose distances
+are the exact ones of their ids.  Also: the port imports no JAX, at any
+depth.
 """
 
 import os
@@ -13,7 +16,6 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 
 import arroy_tpu
 import arroy_tpu_torch
@@ -58,10 +60,19 @@ def test_slice_matches_jax(tmp_path):
     s = tr.searcher(K)  # engine="auto", precision="auto": exact, bf16
     assert s.engine == "exact" and s.route == "fused_select"
     assert recall(_arrays(s(q))[0], jids) >= 0.99
-    with pytest.raises(NotImplementedError, match="traversal"):
-        tr.nns(K).by_vector(q[0])
-    with pytest.raises(NotImplementedError, match="traversal"):
-        tr.searcher(K, engine="forest")
+    # the best-first traversal: nns() and searcher(engine="forest") under
+    # 262,144 items walk the same forest with the same budget; each result
+    # is sorted, and its distances are the exact ones of its ids
+    got = tr.nns(K).search_k(2000).by_vector(q[0])
+    assert len(got) == K
+    ids = np.array([i for i, _ in got])
+    d = np.array([v for _, v in got])
+    assert np.all(np.diff(d) >= 0)
+    np.testing.assert_allclose(d, np.sqrt(((x[ids] - q[0]) ** 2).sum(1)), rtol=1e-5)
+    s = tr.searcher(K, search_k=2000, engine="forest", rescore="exact")
+    assert s.route == "traversal"
+    assert s(q) == tr.nns(K).search_k(2000).by_vectors(q)
+    assert s(q[:1])[0] == got
 
 
 def test_port_imports_no_jax():
