@@ -15,6 +15,7 @@ go to the device as int32 bit patterns; `slot_to_id` becomes int64.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,7 +49,8 @@ class DeviceIndex:
     dims: int
     device: torch.device
     # items
-    rows: torch.Tensor  # [cap, sd] f32, or int32 bit patterns for BQ
+    rows: torch.Tensor  # [cap, sd] f32 (bf16 under ARROY_SERVING_DTYPE=bf16),
+    # or int32 bit patterns for BQ
     norms: torch.Tensor  # [cap] f32
     extras: torch.Tensor  # [cap] f32
     slot_to_id: torch.Tensor  # [cap] int64 (0xFFFFFFFF where not live; use
@@ -91,9 +93,9 @@ class DeviceIndex:
 
     def nbytes(self) -> int:
         """Device bytes of this index's tensors (the budget a serving
-        deployment reserves per resident generation).  `slot_to_id` is
-        int64 here, so this is 4 bytes a slot more than the JAX package's
-        uint32 count."""
+        deployment reserves per resident generation), bf16 rows at 2 bytes
+        a value.  `slot_to_id` is int64 here, so this is 4 bytes a slot
+        more than the JAX package's uint32 count."""
         return sum(
             f.numel() * f.element_size()
             for f in (
@@ -254,7 +256,12 @@ class DeviceIndex:
         metric: type[Metric], dims: int, store: ItemStore, forest: Forest, device
     ) -> "DeviceIndex":
         pk = DeviceIndex.build_np(metric, dims, store, forest)
-        if store.capacity() > 0:
+        if os.environ.get("ARROY_SERVING_DTYPE", "").lower() == "bf16" and not metric.binary:
+            # the item matrix lives on the device in bf16 (half the bytes),
+            # cast from the host pack with round-to-nearest-even, the JAX
+            # package's bits; norms and extras stay f32
+            pk["rows"] = torch.from_numpy(pk["rows"]).to(torch.bfloat16)
+        elif store.capacity() > 0:
             # reuse the store's resident mirror (identical content; build_np
             # only zero-pads an empty store)
             pk["rows"], pk["norms"], pk["extras"] = store.device_arrays(device)

@@ -179,8 +179,12 @@ class Searcher:
       a matmul over every item once the candidates outnumber the corpus
       (streamed in chunks past the [B, M] matrix budget).
 
-    ``route`` names the path the searcher took, e.g. "fused_select",
-    "bq_matrix", "probe" or "traversal".
+    ``route`` names the path chosen when the searcher was bound, e.g.
+    "fused_select", "bq_matrix", "probe" or "traversal".  The exact
+    engine's "f32x1", "f32", "unfused" and "bq_matrix" routes then choose
+    per batch: a batch whose [B, M] score matrix would pass the budget
+    streams the corpus in chunks instead (`search.scan_calls` counts
+    those batches).
     """
 
     def __init__(

@@ -18,7 +18,7 @@ does, and the host reads the batch's "any still active" flag once every
 `POP_BLOCK` pops, never once a pop.
 
 The exact engine's modes score every live
-item of the corpus and returns the top-k under the reference's exact
+item of the corpus and return the top-k under the reference's exact
 distance formulas:
 
 * ``f32x1`` — f32 matmul distances, a top-4k cut, exact re-score;
@@ -28,16 +28,33 @@ distance formulas:
   packed keys without materializing [B, M]; stage 2 cuts those to ``c``
   candidates and re-scores them exactly in f32 (the oversample + exact
   re-score contract, reference src/reader.rs:381-401).  Corpora too
-  small for the per-block top-2 to hold ``max(k, 32)`` candidates serve
-  the unfused two-stage path (quantized dots, an exact f32 top-c cut,
-  the same re-score);
+  small for the per-block top-2 to hold ``max(k, 32)`` candidates, or
+  whose table would pass `_FUSED_TABLE_BYTES`, serve the unfused
+  two-stage path (quantized dots, an exact f32 top-c cut, the same
+  re-score);
 * binary-quantized metrics — the popcount distance matrix kernel
   (`ops/bq_kernels`), exact integer distances;
-* manhattan — the per-pair formula over every row.
+* manhattan — the per-pair formula over every row, in query chunks.
+
+Every mode that builds the [B, M] score matrix streams the corpus
+instead when one batch's matrix would pass `_EXACT_DOTS_BYTES`; the
+test is per batch, so one searcher serves a small batch by the matrix
+and a large one by a scan.  `_exact_scan` (f32x1 and f32 with the rows'
+own dtype, unfused int8 and bf16 with bf16 rows) multiplies the queries
+by one item chunk of `_scan_chunk(B)` rows at a time, keeps each chunk's
+top-k2 scores, merges the winners with one `topk` and re-scores them
+exactly in f32.  `_exact_bq_scan` does the same for the BQ metrics,
+whose distances are exact and need no re-score: kernel 2 counts each
+chunk on the packed words.  The fused route never builds [B, M] and
+never scans.  `scan_calls` counts the batches each scan served.
 
 Cuts use exact `torch.topk` (the JAX package's `approx_max_k` has no
 counterpart; an exact cut can only raise recall).  Tie order among equal
 distances is unspecified, as with any top-k on the GPU.
+
+The item matrix may be bf16 (``ARROY_SERVING_DTYPE=bf16``, see
+`DeviceIndex.build`): matmuls then take bf16 queries and accumulate in
+f32, and every re-score promotes the gathered rows to f32.
 """
 
 from __future__ import annotations
@@ -55,18 +72,21 @@ from .ops.fused_select import DEAD_KEY_MAX, DEFAULT_BM, DEFAULT_GP, fused_block_
 
 _INF = float("inf")
 _F32_EPS = float(np.finfo(np.float32).eps)
-#: the [B, M] score matrix budget; past it the JAX package streams item
-#: chunks (`_exact_scan_impl`, `_exact_bq_scan_impl`), not yet ported
+#: the [B, M] score matrix budget: a batch whose matrix would pass it
+#: streams item chunks (`_exact_scan`, `_exact_bq_scan`) instead
 _EXACT_DOTS_BYTES = 4 << 30
+#: item-chunk floor of the streamed paths (see `_scan_chunk`)
+_EXACT_SCAN_CHUNK = 65_536
+#: corpus items per cut-width unit of the int8/bf16 modes (`_cut_width`)
+_CUT_ITEMS = 262_144
 #: largest fused-select corpus table (int8/bf16 rows) built at bind time
 _FUSED_TABLE_BYTES = 3 << 30
 #: bytes of one [Bc, M, sd] temporary in the per-pair formula path
 _PAIR_CHUNK_BYTES = 256 << 20
 
-_SCAN_TODO = (
-    "the [B, M] score matrix exceeds its budget; the streaming exact scans "
-    "are not ported yet (ROADMAP queue 1: streaming scans)"
-)
+#: batches served by each streaming scan (test/smoke observability: the
+#: bind-time route cannot show the per-batch choice)
+scan_calls = {"exact_scan": 0, "bq_scan": 0}
 
 
 def _next_pow2(n: int) -> int:
@@ -82,14 +102,52 @@ def _row_sq(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b.T in full f32: TF32 would keep ~3 digits of each product."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return a @ b.T
+    """a @ b.T with an f32 result.  f32 rows multiply in full f32 (TF32
+    would keep ~3 digits of each product); bf16 rows take `a` rounded to
+    bf16 and accumulate in f32, as the JAX package's
+    ``preferred_element_type=f32`` does."""
+    if b.dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return a @ b.T
+    a = a.to(b.dtype)
+    if a.device.type == "cuda":
+        return torch.mm(a, b.T, out_dtype=torch.float32)
+    return a.float() @ b.float().T  # a product of two bf16 values is exact in f32
 
 
-def _check_dots_budget(b: int, cap: int) -> None:
-    if b * cap * 4 > _EXACT_DOTS_BYTES:
-        raise NotImplementedError(_SCAN_TODO)
+def _scan_chunk(batch: int) -> int:
+    """Item-chunk width of the streamed paths: the largest pow2 multiple
+    of `_EXACT_SCAN_CHUNK` whose [batch, chunk] distance block stays within
+    half the score-matrix budget."""
+    c = _EXACT_SCAN_CHUNK
+    while batch * (c * 2) * 4 <= _EXACT_DOTS_BYTES // 2:
+        c *= 2
+    return c
+
+
+def _streams(b: int, m: int) -> bool:
+    """Whether a batch of `b` queries over `m` items must scan: its [B, M]
+    f32 matrix would pass `_EXACT_DOTS_BYTES`."""
+    return b * m * 4 > _EXACT_DOTS_BYTES
+
+
+def _chunk_topk(score_of, m: int, chunk: int, kk: int, largest: bool):
+    """Top-kk columns of a [B, m] score matrix that is never whole.
+
+    ``score_of(s, e)`` returns columns [s, e) for one chunk of at most
+    `chunk` items (the last one may be narrower, so nothing is padded).
+    Each chunk keeps its own top-kk and one `topk` merges the stacked
+    winners, with no carried merge on the serial path.  Returns
+    (scores, columns), [B, min(kk, m)] each."""
+    vals, cols = [], []
+    for s in range(0, m, chunk):
+        sc = score_of(s, min(s + chunk, m))
+        v, c = torch.topk(sc, min(kk, sc.shape[1]), dim=1, largest=largest)
+        vals.append(v)
+        cols.append(c + s)
+    v = torch.cat(vals, dim=1)
+    best, pos = torch.topk(v, min(kk, v.shape[1]), dim=1, largest=largest)
+    return best, torch.gather(torch.cat(cols, dim=1), 1, pos)
 
 
 def _rescore(metric, qv, qn, qe, cand, rows, norms, extras, valid):
@@ -173,10 +231,9 @@ def _two_stage(metric, dims, k, c, score, rows, norms, extras, slot_to_id, live,
     return _finish(metric, dims, k, d, slot_to_id, cand)
 
 
-def _exact_fused(metric, dims, k, c, int8, tables, rows, norms, extras, slot_to_id, live, qv, qn, qe):
-    """Fused-select stage 1 + key cut + exact re-score (`_exact_fused_impl`)."""
-    xq, mult, add, pos_to_slot = tables
-    d_pad = xq.shape[1]
+def _fused_queries(qv, d_pad: int, int8: bool):
+    """The fused select's query operands: q [B, d_pad] int8 (per-query
+    scale qsc) or bf16 (qsc = 1), zero-padded to the table's width."""
     if int8:
         qmax = torch.amax(torch.abs(qv), dim=1)
         qsc = torch.where(qmax > 0, qmax / 127.0, 1.0)
@@ -186,7 +243,14 @@ def _exact_fused(metric, dims, k, c, int8, tables, rows, norms, extras, slot_to_
         q = qv.to(torch.bfloat16)
     if d_pad != q.shape[1]:
         q = torch.nn.functional.pad(q, (0, d_pad - q.shape[1]))
-    keys, idxp = fused_block_select(q.contiguous(), xq, qsc.contiguous(), mult, add)
+    return q.contiguous(), qsc.contiguous()
+
+
+def _exact_fused(metric, dims, k, c, int8, tables, rows, norms, extras, slot_to_id, live, qv, qn, qe):
+    """Fused-select stage 1 + key cut + exact re-score (`_exact_fused_impl`)."""
+    xq, mult, add, pos_to_slot = tables
+    q, qsc = _fused_queries(qv, xq.shape[1], int8)
+    keys, idxp = fused_block_select(q, xq, qsc, mult, add)
     cw = min(c, keys.shape[1])
     selk, sel = torch.topk(keys, cw, dim=1)
     cand = pos_to_slot[torch.gather(idxp, 1, sel).long()]
@@ -217,9 +281,11 @@ def _fused_tables(metric, rows, norms, live, int8: bool):
     valid = torch.arange(mp, device=dev) < cap
     rows_p = rows[pos_to_slot]
     if int8:
-        mx = torch.amax(torch.abs(rows_p), dim=1)
+        rf = rows_p.float()
+        mx = torch.amax(torch.abs(rf), dim=1)
         iscale = torch.where(mx > 0, mx / 127.0, 1.0)
-        xq = torch.clamp(torch.round(rows_p / iscale[:, None]), -127, 127).to(torch.int8)
+        xq = torch.clamp(torch.round(rf / iscale[:, None]), -127, 127).to(torch.int8)
+        del rf
     else:
         iscale = torch.ones(mp, dtype=torch.float32, device=dev)
         xq = rows_p.to(torch.bfloat16)
@@ -229,7 +295,7 @@ def _fused_tables(metric, rows, norms, live, int8: bool):
     zeros = torch.zeros(mp, dtype=torch.float32, device=dev)
     if metric.name == "euclidean":
         mult = 2.0 * iscale
-        base_add = -torch.sum(rows_p * rows_p, dim=1)
+        base_add = -_row_sq(rows_p)
     elif metric.name == "cosine":
         norms_p = norms[pos_to_slot]
         mult = iscale / torch.where(norms_p > 0.0, norms_p, 1.0)
@@ -241,22 +307,76 @@ def _fused_tables(metric, rows, norms, live, int8: bool):
     return xq.contiguous(), mult.contiguous(), add.contiguous(), pos_to_slot
 
 
+def _bq_distance(metric, h, norms, qn, d_pad: int):
+    """Exact BQ distances from f32 hamming counts h [B, n]; `norms` are the
+    n items' (cosine), `d_pad` the padded width in bits."""
+    if metric.name == "binary quantized euclidean":
+        return 4.0 * h
+    if metric.name == "binary quantized manhattan":
+        return 2.0 * h
+    pq = d_pad - 2.0 * h  # binary quantized cosine
+    pnqn = norms[None, :] * qn[:, None]
+    ok = pnqn != 0.0
+    cos = pq / torch.where(ok, pnqn, 1.0)
+    return torch.where(ok, (1.0 - cos) / 2.0, 0.0)
+
+
 def _exact_bq_matrix(metric, dims, k, rows, norms, slot_to_id, live, qv, qn):
     """Popcount distance matrix (kernel 2) + exact top-k (`_exact_bq_matrix`)."""
-    _check_dots_budget(qv.shape[0], rows.shape[0])
     h = bq_hamming_matrix(qv.contiguous(), rows).to(torch.float32)
-    if metric.name == "binary quantized euclidean":
-        d = 4.0 * h
-    elif metric.name == "binary quantized manhattan":
-        d = 2.0 * h
-    else:  # binary quantized cosine
-        pq = rows.shape[1] * WORD_BITS - 2.0 * h
-        pnqn = norms[None, :] * qn[:, None]
-        ok = pnqn != 0.0
-        cos = pq / torch.where(ok, pnqn, 1.0)
-        d = torch.where(ok, (1.0 - cos) / 2.0, 0.0)
+    d = _bq_distance(metric, h, norms, qn, rows.shape[1] * WORD_BITS)
     d = torch.where(live[None, :], d, _INF)
     return _finish(metric, dims, k, d, slot_to_id)
+
+
+def _exact_bq_scan(metric, dims, k, chunk, rows, norms, slot_to_id, live, qv, qn):
+    """Streaming BQ exact search (`_exact_bq_scan_impl`): memory is bounded
+    by [B, chunk] at any corpus size.
+
+    Kernel 2 counts each chunk of the packed words [M, w] (a row slice of
+    a contiguous tensor is contiguous).  The JAX package's other branch,
+    a matmul on the ±1 bf16 decode of the corpus, gives the same counts
+    and is not ported: it was slower on an H100 at 1M x 768 and B = 2048
+    (104.1-104.8 ms a batch against 97.2-97.8) and holds 2 bytes a bit
+    more (PERF.md §6).  The distances are exact, so the merged winners
+    need no re-score; the output is NaN padded past ``min(k, chunk)``."""
+    d_pad = rows.shape[1] * WORD_BITS
+    qv = qv.contiguous()
+    kk = min(k, chunk)
+
+    def dist_of(s, e):
+        h = bq_hamming_matrix(qv, rows[s:e]).to(torch.float32)
+        d = _bq_distance(metric, h, norms[s:e], qn, d_pad)
+        return torch.where(live[None, s:e], d, _INF)
+
+    best, cand = _chunk_topk(dist_of, rows.shape[0], chunk, kk, largest=False)
+    scan_calls["bq_scan"] += 1
+    ids, out_d = _finish(metric, dims, kk, best, slot_to_id, cand)
+    if kk < k:
+        ids = torch.nn.functional.pad(ids, (0, k - kk))
+        out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("nan"))
+    return ids, out_d
+
+
+def _exact_scan(metric, dims, k, chunk, rows_mm, x2, rows, norms, extras, slot_to_id, live, qv, qn, qe):
+    """Streaming exact search (`_exact_scan_impl`): memory is bounded by
+    [B, chunk] at any corpus size.
+
+    Each chunk is one matmul of the queries against ``rows_mm`` (f32 or
+    bf16; its dtype decides the tensor-core rate, and the sums are f32
+    either way), the stage-1 score transform and a top-k2 cut; one `topk`
+    merges the winners and a final exact f32 re-score (`_rescore`, from
+    `rows`) ranks them."""
+    k2 = max(min(_next_pow2(8 * k), chunk), 128)
+
+    def score_of(s, e):
+        sc = _score(metric, _f32_matmul(qv, rows_mm[s:e]), x2[s:e], norms[s:e])
+        return torch.where(live[None, s:e], sc, -_INF)
+
+    best, cand = _chunk_topk(score_of, rows_mm.shape[0], chunk, k2, largest=True)
+    d = _rescore(metric, qv, qn, qe, cand, rows, norms, extras, live[cand] & (best > -_INF))
+    scan_calls["exact_scan"] += 1
+    return _finish(metric, dims, k, d, slot_to_id, cand)
 
 
 def _exact_batch(metric, dims, k, rows, norms, extras, slot_to_id, live, qv, qn, qe):
@@ -290,6 +410,18 @@ def exact_engine_supported(metric) -> bool:
     return metric.binary or metric.name in ("euclidean", "cosine", "dot-product", "manhattan")
 
 
+def _cut_width(k: int, cap: int) -> int:
+    """Candidates the int8/bf16 modes keep for the exact re-score: the JAX
+    package's ``max(next_pow2(3k), 32)`` for every `_CUT_ITEMS` items or
+    part of them, rounded up to a power of two.  The items whose quantized
+    score can overtake the k-th best grow with the corpus: on an H100 at
+    768-d, B = 2048, c = 32 held int8 recall@10 at 0.9963 / 0.9920 /
+    0.9892 / 0.9869 at 262,144 / 524,288 / 1M / 2M items, and this width
+    (32 / 64 / 128 / 256) at 0.9963 / 0.9966 / 0.9970 / 0.9975
+    (`scripts/torch_cut_width.py`, PERF.md §6)."""
+    return min(max(_next_pow2(3 * k), 32) * _next_pow2(-(-cap // _CUT_ITEMS)), cap)
+
+
 def _fused_gate(idx: DeviceIndex, k: int, int8: bool) -> bool:
     """The fused path's correctness gate: the per-block top-2 of nb blocks
     must hold at least ``max(k, 32)`` candidates, and the table must fit."""
@@ -308,8 +440,11 @@ def make_exact_fn(
     """Device-resident exact searcher: returns ``(fn, route)`` where
     ``fn(qv, qn, qe, qf) -> (ids [B, k] int64, dists [B, k] f32)`` takes
     and returns tensors on the index's device, and ``route`` names the
-    stage-1 path: "fused_select", "unfused", "f32x1", "f32",
-    "bq_matrix", "exact_batch" or "empty"."""
+    stage-1 path chosen at bind time: "fused_select", "unfused", "f32x1",
+    "f32", "bq_matrix", "exact_batch" or "empty".  The "unfused", "f32x1",
+    "f32" and "bq_matrix" routes choose per batch between the [B, M]
+    matrix and a streaming scan (`_streams`); the scan's bf16 copy of f32
+    rows is made on the first batch that needs it and kept."""
     if precision not in ("auto", "f32x1", "f32", "bf16", "int8"):
         raise ValueError(f"unknown precision {precision!r}")
     k = max(min(count, max(idx.n_items, 1)), 1)
@@ -335,7 +470,10 @@ def make_exact_fn(
 
     if metric.binary:
         def bq_fn(qv, qn, qe, qf):
-            return _exact_bq_matrix(metric, dims, k, rows, norms, s2i, live, qv, qn)
+            b = int(qv.shape[0])
+            if not _streams(b, idx.cap):
+                return _exact_bq_matrix(metric, dims, k, rows, norms, s2i, live, qv, qn)
+            return _exact_bq_scan(metric, dims, k, _scan_chunk(b), rows, norms, s2i, live, qv, qn)
 
         return bq_fn, "bq_matrix"
 
@@ -346,9 +484,22 @@ def make_exact_fn(
         return man_fn, "exact_batch"
 
     x2 = _row_sq(rows)
+    scan_rows: dict = {}
+
+    def scan(qv, qn, qe, dtype):
+        """The streaming scan of a batch past the [B, M] budget, with the
+        rows in `dtype` (a copy made once, unless the rows are in it)."""
+        if dtype not in scan_rows:
+            scan_rows[dtype] = rows.to(dtype)
+        return _exact_scan(
+            metric, dims, k, _scan_chunk(int(qv.shape[0])), scan_rows[dtype], x2, rows,
+            norms, extras, s2i, live, qv, qn, qe,
+        )
+
     if precision == "f32x1":
         def f32x1_fn(qv, qn, qe, qf):
-            _check_dots_budget(qv.shape[0], idx.cap)
+            if _streams(int(qv.shape[0]), idx.cap):
+                return scan(qv, qn, qe, rows.dtype)
             return _exact_f32_direct(
                 metric, dims, k, x2, rows, norms, extras, s2i, live, qv, qn, qe
             )
@@ -359,7 +510,8 @@ def make_exact_fn(
         c32 = min(max(_next_pow2(8 * k), 128), idx.cap)
 
         def f32_fn(qv, qn, qe, qf):
-            _check_dots_budget(qv.shape[0], idx.cap)
+            if _streams(int(qv.shape[0]), idx.cap):
+                return scan(qv, qn, qe, rows.dtype)
             score = _score(metric, _f32_matmul(qv, rows), x2, norms)
             return _two_stage(
                 metric, dims, k, c32, score, rows, norms, extras, s2i, live, qv, qn, qe
@@ -368,7 +520,7 @@ def make_exact_fn(
         return f32_fn, "f32"
 
     int8 = precision == "int8"  # "auto" resolves to bf16
-    c = min(max(_next_pow2(3 * k), 32), idx.cap)
+    c = _cut_width(k, idx.cap)
     if _fused_gate(idx, k, int8):
         tables = _fused_tables(metric, rows, norms, live, int8)
 
@@ -377,19 +529,29 @@ def make_exact_fn(
                 metric, dims, k, c, int8, tables, rows, norms, extras, s2i, live, qv, qn, qe
             )
 
+        fused_fn.tables = tables  # (xq, mult, add, pos_to_slot), for inspection
+
         return fused_fn, "fused_select"
 
-    # unfused two-stage (tiny corpora): quantized dots, exact f32 cut
-    if int8:
-        mx = torch.amax(torch.abs(rows), dim=1)
-        iscale = torch.where(mx > 0, mx / 127.0, 1.0)
-        rows_q = torch.clamp(torch.round(rows / iscale[:, None]), -127, 127).double()
-    else:
-        rows_q = rows.to(torch.bfloat16).float()
+    # unfused two-stage (tiny corpora, or tables past the fused cap):
+    # quantized dots and an exact f32 cut under the budget, the bf16 scan
+    # past it (int8 too, as in the JAX package)
+    quant: list = []
 
     def unfused_fn(qv, qn, qe, qf):
-        _check_dots_budget(qv.shape[0], idx.cap)
+        if _streams(int(qv.shape[0]), idx.cap):
+            return scan(qv, qn, qe, torch.bfloat16)
+        if not quant:  # the quantized rows, made on the first batch under the budget
+            rf = rows.float()
+            if int8:
+                mx = torch.amax(torch.abs(rf), dim=1)
+                iscale = torch.where(mx > 0, mx / 127.0, 1.0)
+                quant.extend((torch.clamp(torch.round(rf / iscale[:, None]), -127, 127).double(), iscale))
+            else:
+                quant.append(rf.to(torch.bfloat16).float())
+        rows_q = quant[0]
         if int8:
+            iscale = quant[1]
             qmax = torch.amax(torch.abs(qv), dim=1)
             qsc = torch.where(qmax > 0, qmax / 127.0, 1.0)
             qi8 = torch.clamp(torch.round(qv / qsc[:, None]), -127, 127)
@@ -423,8 +585,6 @@ _RESCORE_MATRIX_BYTES = 1 << 30
 #: forest-engine traversal="auto" serves the leaf-probe engine at and
 #: above this corpus size (the JAX package's policy, kept as it is)
 _PROBE_MIN_ITEMS = 262_144
-#: item-chunk floor of the streamed matmul re-score (see `_scan_chunk`)
-_EXACT_SCAN_CHUNK = 65_536
 #: optimistic pop budget of the two-tier traversal, in units of EXPECTED
 #: leaf pops (search_k / mean leaf size), plus a pad (the JAX package's
 #: values): a truncated query sends its batch to the full budget
@@ -483,34 +643,29 @@ def _rescore_matmul(metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, 
     return _finish(metric, dims, k, torch.where(mask, d, _INF), slot_to_id)
 
 
-def _rescore_matmul_scan(metric, dims, k, chunk, slot_to_id, rows_p, aux_p, cand, qv, qn, qe):
+def _rescore_matmul_scan(metric, dims, k, chunk, slot_to_id, rows, aux, cand, qv, qn, qe):
     """Chunked matmul re-score for corpora past the [B, M] matrix budget
     (`_rescore_matmul_scan_impl`): the candidate mask of `_rescore_matmul`,
-    but the distance matrix is streamed [B, chunk] at a time, each chunk
-    keeps its top-kk, one `topk` merges the stacked winners, and a final
-    per-pair pass re-scores them exactly (matmul distances carry f32
-    cancellation noise).  ``rows_p`` / ``aux_p`` are the rows and the
-    per-item term (x² for euclidean, the norm for cosine) zero-padded to a
-    multiple of `chunk`.  The JAX package cuts each chunk with
-    `approx_max_k`; `topk` here is exact."""
-    m = rows_p.shape[0]
+    but the distance matrix is streamed [B, chunk] at a time
+    (`_chunk_topk`) and a final per-pair pass re-scores the winners
+    exactly (matmul distances carry f32 cancellation noise).  ``aux`` is
+    the per-item term (x² for euclidean, the norm for cosine).  The JAX
+    package cuts each chunk with `approx_max_k`; `topk` here is exact."""
+    m = rows.shape[0]
     mask = _candidate_mask(cand, m)
     kk = min(max(_next_pow2(8 * k), 64), chunk)
-    all_d, all_i = [], []
-    for base in range(0, m, chunk):
-        dots = _f32_matmul(qv, rows_p[base : base + chunk])
-        d = _matmul_distance(metric, dots, aux_p[base : base + chunk], qv, qn)
-        d = torch.where(mask[:, base : base + chunk], d, _INF)
-        dc, ic = torch.topk(d, kk, dim=1, largest=False)
-        all_d.append(dc)
-        all_i.append(ic + base)
-    best_d, pos = torch.topk(torch.cat(all_d, dim=1), kk, dim=1, largest=False)
-    best_i = torch.gather(torch.cat(all_i, dim=1), 1, pos)
+
+    def dist_of(s, e):
+        d = _matmul_distance(metric, _f32_matmul(qv, rows[s:e]), aux[s:e], qv, qn)
+        return torch.where(mask[:, s:e], d, _INF)
+
+    best_d, best_i = _chunk_topk(dist_of, m, chunk, kk, largest=False)
+    kk = best_d.shape[1]
     # final exact pass over the kk winners (per-pair reference formulas)
     zeros = torch.zeros_like(best_d)
-    xn = aux_p[best_i] if metric.name == "cosine" else zeros
+    xn = aux[best_i] if metric.name == "cosine" else zeros
     d_exact = metric.built_distance(
-        qv[:, None, :], qn[:, None], qe[:, None], rows_p[best_i], xn, zeros
+        qv[:, None, :], qn[:, None], qe[:, None], rows[best_i], xn, zeros
     )
     d_exact = torch.where(best_d < _INF, d_exact, _INF)
     kf = min(k, kk)
@@ -589,16 +744,6 @@ def pops_budget(idx: DeviceIndex, search_k: int, exhaustive: bool, selectivity: 
         tight = idx.n_splits + idx.max_leaf_pops(search_k) + idx.n_dead_pops + t + 8
         budget = min(budget, tight)
     return budget
-
-
-def _scan_chunk(batch: int) -> int:
-    """Item-chunk width of the streamed re-score: the largest pow2 multiple
-    of `_EXACT_SCAN_CHUNK` whose [batch, chunk] distance block stays within
-    half the score-matrix budget."""
-    c = _EXACT_SCAN_CHUNK
-    while batch * (c * 2) * 4 <= _EXACT_DOTS_BYTES // 2:
-        c *= 2
-    return c
 
 
 def _traverse_batch(
@@ -809,7 +954,7 @@ class TraversalFn:
         self.fallbacks = 0
         self.last_pops = None
         self.last_small_ok = None
-        self._scan_operands: dict = {}
+        self._scan_aux = None
 
     def margins(self, qv, qf):
         idx = self.idx
@@ -845,22 +990,18 @@ class TraversalFn:
         idx = self.idx
         return _expand_log(out, idx.leaf_off, idx.leaf_cnt, idx.leaf_items, self.cap)
 
-    def scan_operands(self, chunk: int):
-        """Rows and per-item term padded to a multiple of `chunk`, cached."""
-        if chunk not in self._scan_operands:
+    def scan_aux(self):
+        """The streamed re-score's per-item term (x², the norm or zeros),
+        made on first use and kept."""
+        if self._scan_aux is None:
             idx = self.idx
             if idx.metric.name == "euclidean":
-                aux = _row_sq(idx.rows)
+                self._scan_aux = _row_sq(idx.rows)
             elif idx.metric.name == "cosine":
-                aux = idx.norms
+                self._scan_aux = idx.norms
             else:
-                aux = torch.zeros(idx.cap, dtype=torch.float32, device=idx.device)
-            pad = -(-idx.cap // chunk) * chunk - idx.cap
-            self._scan_operands[chunk] = (
-                torch.nn.functional.pad(idx.rows, (0, 0, 0, pad)),
-                torch.nn.functional.pad(aux, (0, pad)),
-            )
-        return self._scan_operands[chunk]
+                self._scan_aux = torch.zeros(idx.cap, dtype=torch.float32, device=idx.device)
+        return self._scan_aux
 
     def rescore_mode(self, b: int) -> str:
         return rescore_mode(self.idx.metric, b, self.cap, self.idx.n_items, self.rescore_want)
@@ -869,10 +1010,9 @@ class TraversalFn:
         idx = self.idx
         mode = self.rescore_mode(int(qv.shape[0]))
         if mode == "matmul_scan":
-            chunk = _scan_chunk(int(qv.shape[0]))
-            rows_p, aux_p = self.scan_operands(chunk)
             return _rescore_matmul_scan(
-                idx.metric, idx.dims, self.k, chunk, idx.slot_to_id, rows_p, aux_p, cand, qv, qn, qe
+                idx.metric, idx.dims, self.k, _scan_chunk(int(qv.shape[0])), idx.slot_to_id,
+                idx.rows, self.scan_aux(), cand, qv, qn, qe,
             )
         impl = _rescore_matmul if mode == "matmul" else _rescore_batch
         return impl(

@@ -41,16 +41,33 @@ exits non-zero:
    per batch, whether the small tier sufficed, the re-score mode and
    CUDA-event times of its four stages; 64 queries held against the same
    searcher on the CPU, `nns()` against the searcher, and one filtered
-   batch (10% of the ids).  It has no kernel of its own.
+   batch (10% of the ids).  It has no kernel of its own;
+8. large-corpus exact serving — 1,000,000 x 768 of the same corpus model
+   (drawn on the card, seed 42), euclidean and "binary quantized
+   cosine", 10 trees, 2 batches of 2048, whose [B, M] matrix (8.2 GB)
+   passes the 4 GiB budget, so each batch streams in 4 chunks of 262,144
+   items: f32x1 streams and equals the same searcher on sub-batches of
+   256 (the matrix path) and a float64 brute force; bf16 and int8 run
+   fused (kernel 1), then streamed (the fused-table cap lowered for that
+   searcher), each at recall@10 >= 0.99 against f32x1; kernel 1 held
+   against its plain version on each fused searcher's own tables (Mp =
+   1,001,472) and one batch's queries; the BQ scan (kernel 2 once a
+   chunk) streams and equals the matrix on sub-batches of 256, and
+   kernel 2 is held against its plain version on the ragged last chunk
+   view.  It prints ms a batch, qps and peak device memory per route, the
+   build times and its wall time.
 
 Kernel launch counts are reset right before each main path (phases 4-5,
-and phase 6) and read right after it: every kernel of that path must have
-launched there.  The last lines are the per-kernel JSON record, the
-nvidia-smi line and the result.
+phase 6 and phase 8) and read right after it: every kernel of that path
+must have launched there.  Launches that hold a kernel against its plain
+version inside a path (`uncounted`) leave its counts as they were.  The
+last lines are the per-kernel JSON record, the nvidia-smi line and the
+result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -65,6 +82,11 @@ M, D, N_TREES, K, BATCH, N_BATCHES = 100_000, 768, 10, 10, 2048, 4
 #: forest engines, and bench.py's recall target and search_k policy
 M_PROBE, B_PROBE, N_PROBE_BATCHES = 262_144, 256, 8
 TARGET_RECALL, SEARCH_K0, SK_DOUBLINGS = 0.95, 2000, 3
+#: phase 8: a corpus past the [B, M] budget at B = 2048, served in batches
+#: of 2048 (streamed) and held against sub-batches of 256 (the matrix)
+M_LARGE, N_LARGE_BATCHES, B_MATRIX = 1_000_000, 2, 256
+#: rows drawn (and brute-forced) at a time on the card
+CORPUS_SLICE = 65_536
 KERNEL_SOURCES = ("fused_select", "hamming", "gather_score")
 #: published peaks of one H100 SXM at 700 W (dense): bytes/s and op/s
 HBM_BPS = 3.35e12
@@ -146,26 +168,80 @@ def select_inputs(rng, b, mp, d, int8, dev):
     )
 
 
-def check_select(fs, inputs, int8, bm):
-    """Kernel vs plain version; returns (max |Δkey| in key units, share of
-    keys equal).  int8 keys and indices must be equal; bf16 (f32 sums in
-    another order) within one value quantum, >= 98% of keys equal,
-    indices equal where keys are."""
+def key_scores(keys, bm):
+    """The f32 score a packed key stands for, its lane bits cleared (the
+    inverse of the kernel's key packing, within one value quantum)."""
     import torch
 
+    sk = keys & -bm
+    return torch.where(sk >= 0, sk, sk ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def check_select(fs, inputs, int8, bm, q_slice=BATCH, min_equal=0.98):
+    """Kernel vs plain version; returns (max |Δkey| in key units, share of
+    keys equal, largest bf16 score error over its bound).  int8 keys and
+    indices must be equal.  bf16 (f32 sums in another order): indices
+    equal where keys are; every key within one value quantum of the plain
+    one or within the sums' rounding of it, tol = 1e-5 · qsc·|mult| ·
+    |q|·|x| (Cauchy-Schwarz bounds Σ|q_i·x_i|); where the kernel chose
+    another item than the plain version, that item's float64 score within
+    tol + 2^-14·|score| of the plain version's best; and at least
+    `min_equal` of the keys equal (None: not bounded).  A key past one
+    quantum is a score that cancels (euclidean's 2q·x − |x|² on clustered
+    data), where the sums' rounding is far above one quantum: on such
+    data the share of equal keys depends on the data, not the kernel.
+    The plain version runs `q_slice` queries at a time (it materializes
+    [B, Mp])."""
+    import torch
+
+    from arroy_tpu_torch.ops.fused_select import DEAD_KEY_MAX
+
     keys, idx = fs.fused_block_select(*inputs, bm=bm)
-    rkeys, ridx = fs.fused_block_select_reference(*inputs, bm=bm)
+    q, x, qsc, mult, add = inputs
+    ref = [fs.fused_block_select_reference(q[s:s + q_slice], x, qsc[s:s + q_slice], mult, add,
+                                           bm=bm) for s in range(0, q.shape[0], q_slice)]
+    rkeys, ridx = torch.cat([k for k, _ in ref]), torch.cat([i for _, i in ref])
+    del ref
     torch.cuda.synchronize()
     dk = (keys.long() - rkeys.long()).abs()
     eq = dk == 0
     frac = float(eq.float().mean())
+    worst = 0.0
     if int8:
         assert bool(eq.all()) and torch.equal(idx, ridx), "int8 select differs"
-    else:
-        assert int(dk.max()) <= 2 * bm, f"bf16 keys differ by {int(dk.max())}"
-        assert frac >= 0.98, f"only {frac:.4f} of bf16 keys equal"
-        assert torch.equal(idx[eq], ridx[eq]), "bf16 indices differ at equal keys"
-    return int(dk.max()), frac
+        return int(dk.max()), frac, worst
+    if min_equal is not None:
+        assert frac >= min_equal, f"only {frac:.4f} of bf16 keys equal"
+    assert torch.equal(idx[eq], ridx[eq]), "bf16 indices differ at equal keys"
+    dead = rkeys <= DEAD_KEY_MAX
+    assert torch.equal(keys <= DEAD_KEY_MAX, dead), "bf16 dead keys differ"
+    qn = q.float().norm(dim=1)
+    xn = torch.cat([x[s:s + CORPUS_SLICE].float().norm(dim=1)
+                    for s in range(0, x.shape[0], CORPUS_SLICE)])
+
+    def tol(b, m):
+        return 1e-5 * qsc[b] * mult[m].abs() * qn[b] * xn[m]
+
+    def largest(ratio):
+        assert not bool(torch.isnan(ratio).any()), "bf16 score check met a NaN"
+        return max(worst, float(ratio.max()))
+
+    far = torch.nonzero((dk > 2 * bm) & ~dead)
+    for s in range(0, len(far), CORPUS_SLICE):
+        b, j = far[s:s + CORPUS_SLICE].unbind(1)
+        err = (key_scores(keys[b, j], bm) - key_scores(rkeys[b, j], bm)).abs()
+        worst = largest(err / tol(b, ridx[b, j].long()))
+    moved = torch.nonzero((idx != ridx) & ~dead)
+    for s in range(0, len(moved), CORPUS_SLICE):
+        b, j = moved[s:s + CORPUS_SLICE].unbind(1)
+        m, mr = idx[b, j].long(), ridx[b, j].long()
+        own = (q[b].double() * x[m].double()).sum(1) * (qsc[b] * mult[m]).double() \
+            + add[m].double()
+        best = key_scores(rkeys[b, j], bm).double()
+        bound = torch.maximum(tol(b, m), tol(b, mr)).double() + best.abs() * 2.0**-14
+        worst = largest((own - best).abs() / bound)
+    assert worst <= 1.0, f"bf16 scores differ by up to {worst:.3g} times their bound"
+    return int(dk.max()), frac, worst
 
 
 def tensor_core_ops(so_path):
@@ -220,9 +296,10 @@ def gather_inputs(rng, dev, nbt, p, d, b, c, dtype):
     return rows.to(dev), torch.from_numpy(bid).to(dev), q.to(dev)
 
 
-def run_batches(s, batches, label):
+def run_batches(s, batches, label, times=None):
     """Warm up, then time the searcher over every batch with CUDA events;
-    returns the concatenated (ids, dists) on the host."""
+    returns the concatenated (ids, dists) on the host.  With `times`, also
+    records there the ms per batch under `label`."""
     import torch
 
     dqs = [s.prepare_queries(b) for b in batches]
@@ -237,6 +314,8 @@ def run_batches(s, batches, label):
     n = sum(len(b) for b in batches)
     say("search", f"{label}: route {s.route}, {n / (ms / 1e3):.1f} qps "
         f"({ms / len(batches):.3f} ms per batch of {len(batches[0])})")
+    if times is not None:
+        times[label] = ms / len(batches)
     return (
         np.concatenate([i.cpu().numpy() for i, _ in res]),
         np.concatenate([d.cpu().numpy() for _, d in res]),
@@ -248,14 +327,16 @@ def recall_of(ids, ref_ids):
     return hits / ref_ids.size
 
 
-def tie_aware_equal(ids_a, d_a, ids_b, d_b):
-    """Sorted distance rows equal; ids equal wherever the distance is
-    strictly unique within the row's top-k.  The row's largest distance
-    may tie with items past k (a boundary tie), so it is exempt."""
+def tie_aware_equal(ids_a, d_a, ids_b, d_b, rtol=0.0):
+    """Sorted distance rows equal (within `rtol`); ids equal wherever the
+    distance is unique (within `rtol`) in the row's top-k.  The row's
+    largest distance may tie with items past k (a boundary tie), so it is
+    exempt."""
     for ia, da, ib, db in zip(ids_a, d_a, ids_b, d_b):
-        np.testing.assert_array_equal(np.sort(da), np.sort(db))
+        np.testing.assert_allclose(np.sort(da), np.sort(db), rtol=rtol, atol=0)
         for j in range(len(da)):
-            if np.sum(da == da[j]) == 1 and da[j] != da.max():
+            near = np.isclose(da, da[j], rtol=rtol, atol=0)
+            if near.sum() == 1 and not near[np.argmax(da)]:
                 assert ia[j] == ib[j], f"id differs at a unique distance: {ia} vs {ib}"
 
 
@@ -298,7 +379,7 @@ def kernel_parity(dev, rec):
         err, least_eq = 0, 1.0
         for b, mp, d, bm in select_cases:
             inputs = select_inputs(rng, b, mp, d, int8, dev)
-            e, frac = check_select(fs, inputs, int8, bm)
+            e, frac, _ = check_select(fs, inputs, int8, bm)
             err, least_eq = max(err, e), min(least_eq, frac)
             say("parity", f"{name} B={b} Mp={mp} d={d} bm={bm}: max |dkey| {e}, {frac:.5f} of keys equal")
         say("parity", f"{name}: {len(select_cases)} shapes, max |dkey| {err}, least share of keys "
@@ -713,6 +794,228 @@ def time_gather(gs, served, batches, rec):
             f"{gs.SCHEDULE_MIN_BYTES >> 20} MiB or more)")
 
 
+@contextlib.contextmanager
+def uncounted(*counters):
+    """Kernel launches inside the block (a kernel held against its plain
+    version, a reference run) leave the path's launch counts as they
+    were."""
+    saved = [dict(c) for c in counters]
+    try:
+        yield
+    finally:
+        for c, n in zip(counters, saved):
+            c.update(n)
+
+
+def card_corpus(m, d, seed):
+    """bench.py's clustered corpus model (`make_corpus`) drawn on the card
+    from one seeded generator, in slices of `CORPUS_SLICE` rows with the 64
+    parents drawn once, then copied to the host (f32): `make_corpus` at
+    1M rows would build two 6 GB float64 temporaries on the host."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    parents = torch.randn((64, d), generator=g, device="cuda")
+    out = np.empty((m, d), np.float32)
+    for s in range(0, m, CORPUS_SLICE):
+        n = min(CORPUS_SLICE, m - s)
+        pa, pb = (torch.randint(64, (n,), generator=g, device="cuda") for _ in range(2))
+        mask = torch.rand((n, d), generator=g, device="cuda") < 0.5
+        x = torch.where(mask, parents[pa], parents[pb])
+        x += 0.05 * torch.randn((n, d), generator=g, device="cuda")
+        out[s:s + n] = x.cpu().numpy()
+    return out
+
+
+def brute_force_top(x_dev, q, k):
+    """float64 top-k distances of each query against every row (on the
+    card, in slices, |x|² - 2x·q + |q|² in float64)."""
+    import torch
+
+    q64 = torch.from_numpy(q).cuda().double()
+    best = []
+    for s in range(0, x_dev.shape[0], CORPUS_SLICE):
+        xs = x_dev[s:s + CORPUS_SLICE].double()
+        d2 = (xs * xs).sum(1)[None, :] - 2.0 * q64 @ xs.T + (q64 * q64).sum(1)[:, None]
+        best.append(torch.topk(d2, k, dim=1, largest=False).values)
+    d2 = torch.topk(torch.cat(best, dim=1), k, dim=1, largest=False).values
+    return torch.sqrt(torch.clamp(d2, min=0.0)).cpu().numpy()
+
+
+def large_slice(rec):
+    """Phase 8: the exact engine past the [B, M] matrix budget, at
+    1,000,000 x 768 and B = 2048 (B·M·4 = 8.2 GB > 4 GiB, so every batch of
+    2048 streams in chunks of 262,144 items, the last one ragged).  Prints
+    the route records (ms a batch, qps, peak device GiB, checks), adds
+    kernel 1's check and kernel 2's time at this phase's shapes to `rec`,
+    and returns the kernel launches the path made (not those of the
+    comparisons and timing, which run `uncounted`)."""
+    import torch
+
+    from arroy_tpu_torch import Database, Reader, Writer, search
+    from arroy_tpu_torch.models import items
+    from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs
+
+    t_phase = time.perf_counter()
+    # the stores' device mirrors of earlier phases' indexes (an LRU of
+    # resident f32 rows) would count in this phase's held and peak memory
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+    routes = {}
+    times = {}
+    t0 = time.perf_counter()
+    x = card_corpus(M_LARGE + BATCH * N_LARGE_BATCHES, D, 42)
+    x, queries = x[:M_LARGE], x[M_LARGE:]
+    batches = [queries[i * BATCH:(i + 1) * BATCH] for i in range(N_LARGE_BATCHES)]
+    sub = [b[i:i + B_MATRIX] for b in batches for i in range(0, BATCH, B_MATRIX)]
+    say("large", f"{M_LARGE} x {D} corpus drawn in {time.perf_counter() - t0:.2f} s")
+    assert BATCH * M_LARGE * 4 > search._EXACT_DOTS_BYTES >= B_MATRIX * M_LARGE * 4
+    chunk = search._scan_chunk(BATCH)
+    say("large", f"B={BATCH}: chunk {chunk} items, {-(-M_LARGE // chunk)} chunks a batch, the "
+        f"last {M_LARGE - (M_LARGE // chunk) * chunk} wide; B={B_MATRIX} builds the [B, M] matrix")
+
+    def serve(s, label, bs=batches):
+        """One route over `bs`: ids, dists, with ms a batch, qps and peak GiB
+        recorded under `label`."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        ids, dists = run_batches(s, bs, label, times)
+        rec = routes.setdefault(label, {})
+        rec.update(ms=times[label], qps=len(bs[0]) / (times[label] / 1e3), batch=len(bs[0]),
+                   held_gib=held, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        say("large", f"{label}: peak device memory {rec['peak_gib']:.2f} GiB ({held:.2f} GiB "
+            f"held before the route's first batch)")
+        return ids[:, :K], dists[:, :K]
+
+    def scans(key, fn):
+        n0 = search.scan_calls[key]
+        out = fn()
+        return out, search.scan_calls[key] - n0
+
+    def build(metric):
+        db = Database(None, device="cuda")
+        w = Writer(db, 0, D, metric=metric)
+        with db.write() as wtxn:
+            t0 = time.perf_counter()
+            w.add_items(wtxn, np.arange(M_LARGE, dtype=np.uint32), x)
+            t1 = time.perf_counter()
+            w.builder(seed=42).n_trees(N_TREES).build(wtxn)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        r = Reader.open(db.read(), 0, db, metric=metric)
+        routes[f"build {metric}"] = {"add_items_s": t1 - t0, "build_s": t2 - t1}
+        say("large", f"{metric}: add_items {t1 - t0:.2f} s, build ({N_TREES} trees) {t2 - t1:.2f} s")
+        return r
+
+    # euclidean: f32x1 streams; the same searcher under the budget builds
+    # the matrix; the float64 brute force on 32 queries
+    r = build("euclidean")
+    s = r.searcher(K, engine="exact", precision="f32x1")
+    (ref_ids, ref_d), n = scans("exact_scan", lambda: serve(s, "f32x1 scan"))
+    assert n == N_LARGE_BATCHES + 1, f"f32x1 streamed {n} batches"
+    with uncounted(fs.launches, bk.launches):
+        (mids, md), n = scans("exact_scan", lambda: serve(s, f"f32x1 matrix B={B_MATRIX}", sub))
+    assert n == 0, "a sub-batch streamed"
+    tie_aware_equal(ref_ids, ref_d, mids, md, rtol=1e-5)
+    say("large", f"f32x1: the scan equals the matrix path on {len(queries)} queries (tie-aware, "
+        f"rtol 1e-5)")
+    x_dev = torch.from_numpy(x).cuda()
+    true = brute_force_top(x_dev, queries[:32], K)
+    del x_dev
+    np.testing.assert_allclose(ref_d[:32], true, rtol=1e-5)
+    got = np.sqrt(((x[ref_ids[:32]].astype(np.float64) - queries[:32, None, :]) ** 2).sum(-1))
+    np.testing.assert_allclose(got, true, rtol=1e-5)
+    say("large", "f32x1 scan ids and distances match a float64 brute force on 32 queries "
+        "(rtol 1e-5)")
+
+    # bf16 / int8: fused (kernel 1), then the scan forced by a zero table cap
+    # for that searcher, the route tables past the cap take
+    for prec in ("bf16", "int8"):
+        s = r.searcher(K, engine="exact", precision=prec)
+        assert s.route == "fused_select", s.route
+        (ids, _), n = scans("exact_scan", lambda: serve(s, f"{prec} fused"))
+        assert n == 0
+        routes[f"{prec} fused"]["recall"] = rc = recall_of(ids, ref_ids)
+        say("large", f"{prec} fused: recall@{K} vs f32x1 {rc:.4f}")
+        assert rc >= 0.99, f"{prec} fused recall {rc}"
+        # kernel 1 against its plain version at this corpus: the searcher's
+        # own tables and the first batch's queries, quantized as it does
+        int8 = prec == "int8"
+        xq, mult, add, _ = s.device_fn.tables
+        q, qsc = search._fused_queries(s.prepare_queries(batches[0])[0], xq.shape[1], int8)
+        with uncounted(fs.launches):
+            e, frac, worst = check_select(fs, (q, xq, qsc, mult, add), int8, fs.DEFAULT_BM,
+                                          q_slice=256, min_equal=None)
+        rec[f"fused_select_{prec}"]["phase8_check"] = {
+            "B": q.shape[0], "Mp": xq.shape[0], "max_dkey": e, "keys_equal": frac,
+            "score_err_over_bound": worst}
+        say("kernel1", f"fused_select_{prec} on the searcher's tables, B={q.shape[0]} "
+            f"Mp={xq.shape[0]} d={xq.shape[1]}: max |dkey| {e}, {frac:.5f} of keys equal, "
+            f"largest score error {worst:.3g} of its bound")
+        del s, q, qsc, xq, mult, add
+        cap, search._FUSED_TABLE_BYTES = search._FUSED_TABLE_BYTES, 0
+        s = r.searcher(K, engine="exact", precision=prec)
+        search._FUSED_TABLE_BYTES = cap
+        assert s.route == "unfused", s.route
+        (ids, _), n = scans("exact_scan", lambda: serve(s, f"{prec} scan"))
+        assert n == N_LARGE_BATCHES + 1, f"{prec} streamed {n} batches"
+        routes[f"{prec} scan"]["recall"] = rc = recall_of(ids, ref_ids)
+        say("large", f"{prec} scan (bf16 rows): recall@{K} vs f32x1 {rc:.4f}")
+        assert rc >= 0.99, f"{prec} scan recall {rc}"
+        del s
+    del r
+    items._DEVICE_MIRROR.clear()  # the euclidean index's rows
+    torch.cuda.empty_cache()
+
+    # binary quantized cosine: the scan (kernel 2 once a chunk), and the
+    # matrix on sub-batches
+    r = build("binary quantized cosine")
+    s = r.searcher(K, engine="exact")
+    assert s.route == "bq_matrix", s.route
+    h0 = bk.launches["bq_hamming"]
+    (scan, n) = scans("bq_scan", lambda: serve(s, "BQ scan"))
+    per_batch = (bk.launches["bq_hamming"] - h0) / (N_LARGE_BATCHES + 1)
+    assert n == N_LARGE_BATCHES + 1, f"the BQ scan served {n} batches"
+    assert per_batch >= 4, f"kernel 2 launched {per_batch} times a batch"
+    routes["BQ scan"]["kernel2_launches_a_batch"] = per_batch
+    # the path's launches, read before the comparisons and timing below
+    path_launches = {**dict(fs.launches), **dict(bk.launches)}
+    with uncounted(bk.launches):
+        (mat, n) = scans("bq_scan", lambda: serve(s, f"BQ matrix B={B_MATRIX}", sub))
+    assert n == 0
+    tie_aware_equal(*scan, *mat)
+    same = float(np.mean(np.all(scan[0] == mat[0], axis=1)))
+    say("large", f"BQ: the scan equals bq_matrix on sub-batches of {B_MATRIX} (bit-equal "
+        f"distances, tie-aware ids, {same:.4f} of rows identical); kernel 2 launched "
+        f"{per_batch:.0f} times a batch")
+    # kernel 2 at the scan's own shapes: bit-equal to its plain version on
+    # the ragged last chunk (a view 786,432 rows into the packed words),
+    # timed on a full chunk
+    qw = s.prepare_queries(batches[0])[0].contiguous()
+    words = s._dev.rows
+    last = words[(M_LARGE // chunk) * chunk:]
+    full = words[:chunk]
+    r2 = rec["bq_hamming"]
+    with uncounted(bk.launches):
+        assert torch.equal(bk.bq_hamming_matrix(qw, last),
+                           bk.bq_hamming_matrix_reference(qw, last)), \
+            "kernel 2 differs from its plain version on the last chunk view"
+        r2["chunk_ms"] = cuda_ms(lambda: bk.bq_hamming_matrix(qw, full), 10)
+    r2["chunk_bound_ms"] = 4.0 * (qw.numel() + full.numel() + BATCH * chunk) / HBM_BPS * 1e3
+    say("kernel2", f"bq_hamming on chunk views of the 1M corpus: bit-equal on the last "
+        f"({last.shape[0]} rows, {last.data_ptr() % 16} bytes past 16-byte alignment); "
+        f"B={BATCH} x {chunk} rows, w={words.shape[1]}: {r2['chunk_ms']:.4f} ms, bound "
+        f"{r2['chunk_bound_ms']:.4f} ms (bytes)")
+    del r, s, qw, words, last, full
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    say("large", json.dumps({"phase8_s": wall, "routes": routes}))
+    say("time", f"phase 8 took {wall:.1f} s")
+    return path_launches
+
+
 def main() -> int:
     import torch
 
@@ -806,6 +1109,17 @@ def main() -> int:
         del served
     launches.update(probe_launches)
     say("time", f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 8. large-corpus exact serving (its own path: counts from here)
+    for k in fs.launches:
+        fs.launches[k] = 0
+    bk.launches["bq_hamming"] = 0
+    large_launches = large_slice(rec)
+    say("launches", f"large-corpus path: {json.dumps(large_launches)}")
+    for name, n in large_launches.items():
+        assert n > 0, f"{name} never launched on the large-corpus path"
+        rec[name]["phase8_launches"] = n
+    say("time", f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its main path"
         rec[name]["launches"] = n

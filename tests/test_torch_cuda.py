@@ -12,7 +12,9 @@ are (that of `tests/test_pallas_exact.py`); gather-score within
 another order).  The forest traversal (no kernel of its own) against the
 same index searched on the CPU, on the same margins: leaf logs, pops,
 counts and filtered candidates bit-equal; results tie-aware, distances
-rtol 1e-5 with a 1e-6 floor (re-scores summed in another order).
+rtol 1e-5 with a 1e-6 floor (re-scores summed in another order).  The
+streaming exact scans against the same index scanned on the CPU: f32
+tie-aware at rtol 1e-5, BQ distances bit-equal with ids tie-aware.
 """
 
 import warnings
@@ -449,3 +451,128 @@ def test_cuda_traversal_syncs_once_a_block(tmp_path, filtered):
              if str(w.message).startswith("called a synchronizing CUDA operation")]
     assert len(syncs) == -(-int(pops.max()) // POP_BLOCK), syncs
     assert len(set(syncs)) == 1, syncs  # all of them the block's one read
+
+
+def _force_scan(monkeypatch, **more):
+    """Every batch streams (a 1-byte matrix budget), in chunks of 1,024
+    items: 6,000 items make five full chunks and a ragged sixth."""
+    from arroy_tpu_torch import search as t_search
+
+    monkeypatch.setattr(t_search, "_EXACT_DOTS_BYTES", 1)
+    monkeypatch.setattr(t_search, "_EXACT_SCAN_CHUNK", 1024)
+    for name, value in more.items():
+        monkeypatch.setattr(t_search, name, value)
+    return t_search
+
+
+@pytest.mark.parametrize("metric,precision", [
+    ("euclidean", "f32x1"), ("cosine", "f32x1"), ("dot-product", "f32x1"), ("euclidean", "f32"),
+    ("euclidean", "bf16"), ("cosine", "int8"),
+])
+def test_cuda_exact_scan_matches_cpu(tmp_path, monkeypatch, metric, precision):
+    """The streaming scan on the card against the same index scanned on the
+    CPU: f32 modes tie-aware at rtol 1e-5; the int8 and bf16 modes (the
+    unfused route, forced by a zero fused-table cap) scan bf16 rows on
+    cuBLAS and recall >= 0.99 of the CPU's ids."""
+    gr, cr, q = _traversal_pair(tmp_path, metric)
+    t_search = _force_scan(monkeypatch, _FUSED_TABLE_BYTES=0)
+    gs_, cs_ = (r.searcher(10, engine="exact", precision=precision) for r in (gr, cr))
+    assert gs_.route == ("unfused" if precision in ("bf16", "int8") else precision)
+    n0 = t_search.scan_calls["exact_scan"]
+    ids, d = _result_arrays(gs_.device_fn(*gs_.prepare_queries(q)))
+    assert t_search.scan_calls["exact_scan"] == n0 + 1
+    rids, rd = _result_arrays(cs_.device_fn(*cs_.prepare_queries(q)))
+    if precision.startswith("f32"):
+        tie_aware_equal(ids, d, rids, rd, rtol=1e-5, atol=1e-6)
+    else:
+        assert recall(ids, rids) >= 0.99
+
+
+@pytest.mark.parametrize("metric", [
+    "binary quantized euclidean", "binary quantized manhattan", "binary quantized cosine"])
+def test_cuda_bq_scan_matches_cpu(tmp_path, monkeypatch, metric):
+    """The BQ scan on the card: distances bit-equal to the CPU's scan and
+    to the card's own matrix, ids tie-aware; kernel 2 is launched once a
+    chunk (6 a batch)."""
+    gr, cr, q = _traversal_pair(tmp_path, metric, d=256)
+    s = gr.searcher(10, engine="exact")
+    mids, md = _result_arrays(s.device_fn(*s.prepare_queries(q)))
+    t_search = _force_scan(monkeypatch)
+    gs_, cs_ = (r.searcher(10, engine="exact") for r in (gr, cr))
+    n0, h0 = t_search.scan_calls["bq_scan"], bq_kernels.launches["bq_hamming"]
+    ids, d = _result_arrays(gs_.device_fn(*gs_.prepare_queries(q)))
+    assert t_search.scan_calls["bq_scan"] == n0 + 1
+    assert bq_kernels.launches["bq_hamming"] == h0 + 6
+    tie_aware_equal(ids, d, *_result_arrays(cs_.device_fn(*cs_.prepare_queries(q))), rtol=0, atol=0)
+    tie_aware_equal(ids, d, mids, md, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,w,s,e", [
+    (20_000, 24, 4_096, 8_192), (20_000, 24, 16_384, 20_000), (3_000, 6, 1, 1_025), (3_000, 2, 3, 2_999),
+])
+def test_cuda_hamming_on_a_chunk_view(m, w, s, e):
+    """Kernel 2 on a row slice of a larger contiguous tensor, as the BQ scan
+    calls it: the counts equal the plain version's on the same view and the
+    columns [s, e) of the whole matrix.  With w = 6 and 2 the view starts
+    24 bytes past a 16-byte boundary."""
+    dev = require_cuda()
+    rng = np.random.default_rng(m + w + s)
+    q, x = _hamming_words(dev, 70, w, rng), _hamming_words(dev, m, w, rng)
+    view = x[s:e]
+    assert view.is_contiguous() and (view.data_ptr() % 16 != 0) == (w < 8)
+    got = bq_kernels.bq_hamming_matrix(q, view)
+    assert torch.equal(got, bq_kernels.bq_hamming_matrix_reference(q, view))
+    assert torch.equal(got, bq_kernels.bq_hamming_matrix(q, x)[:, s:e])
+
+
+@pytest.mark.parametrize("metric,precision,counter", [
+    ("euclidean", "f32x1", "exact_scan"), ("binary quantized cosine", "auto", "bq_scan")])
+def test_cuda_one_searcher_chooses_the_matrix_or_the_scan_per_batch(tmp_path, monkeypatch, metric,
+                                                                    precision, counter):
+    """A budget that holds 16 queries' matrix: one searcher serves a batch
+    of 16 by the matrix and one of 64 by the scan, with the same results
+    for the 16 queries both served (f32 at rtol 1e-5, BQ bit-equal)."""
+    from arroy_tpu_torch import search as t_search
+
+    gr, _, q = _traversal_pair(tmp_path, metric, d=256 if "binary" in metric else 48)
+    monkeypatch.setattr(t_search, "_EXACT_DOTS_BYTES", 16 * 6000 * 4)
+    monkeypatch.setattr(t_search, "_EXACT_SCAN_CHUNK", 1024)
+    s = gr.searcher(10, engine="exact", precision=precision)
+    n0 = dict(t_search.scan_calls)
+    small = _result_arrays(s.device_fn(*s.prepare_queries(q[:16])))
+    assert t_search.scan_calls == n0
+    ids, d = _result_arrays(s.device_fn(*s.prepare_queries(q)))
+    assert t_search.scan_calls == {**n0, counter: n0[counter] + 1}
+    tol = dict(rtol=0, atol=0) if "binary" in metric else dict(rtol=1e-5, atol=1e-6)
+    tie_aware_equal(ids[:16], d[:16], *small, **tol)
+
+
+@pytest.mark.parametrize("engine,precision", [
+    ("exact", "f32x1"), ("exact", "f32"), ("exact", "bf16"), ("exact", "int8"), ("forest", "exact"),
+])
+def test_cuda_serving_bf16_matches_cpu(tmp_path, monkeypatch, engine, precision):
+    """ARROY_SERVING_DTYPE=bf16: the rows are bf16 on the card, every exact
+    mode serves from them (bf16 GEMMs with f32 sums; the fused tables made
+    from bf16 rows), as does the traversal's exact re-score (on the CPU's
+    margins), against the same index served bf16 on the CPU: f32 modes and
+    the traversal tie-aware at rtol 1e-5, the fused modes at recall 0.99."""
+    monkeypatch.setenv("ARROY_SERVING_DTYPE", "bf16")
+    gr, cr, q = _traversal_pair(tmp_path)
+    if engine == "exact":
+        gs_, cs_ = (r.searcher(10, engine="exact", precision=precision) for r in (gr, cr))
+        assert gs_._dev.rows.dtype == cs_._dev.rows.dtype == torch.bfloat16
+        got = _result_arrays(gs_.device_fn(*gs_.prepare_queries(q)))
+        want = _result_arrays(cs_.device_fn(*cs_.prepare_queries(q)))
+    else:
+        kw = dict(search_k=2000, engine="forest", traversal="xla", rescore=precision)
+        gs_, cs_ = gr.searcher(10, **kw), cr.searcher(10, **kw)
+        assert gs_._dev.rows.dtype == torch.bfloat16
+        cq = cs_.prepare_queries(q)
+        m = cs_.device_fn.margins(cq[0], cq[3])
+        got = _result_arrays(gs_.device_fn.run(m.cuda(), *(t.cuda() for t in cq[:3])))
+        want = _result_arrays(cs_.device_fn.run(m, *cq[:3]))
+    if precision in ("bf16", "int8"):
+        assert gs_.route == "fused_select"
+        assert recall(got[0], want[0]) >= 0.99
+    else:
+        tie_aware_equal(*got, *want, rtol=1e-5, atol=1e-6)
