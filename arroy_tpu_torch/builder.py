@@ -1,7 +1,7 @@
 """Level-synchronous batched forest builder (PyTorch).
 
-Counterpart of the full-build grow path of `arroy_tpu/builder.py`.  The
-reference builds each tree by a per-node recursion (reference:
+Counterpart of `arroy_tpu/builder.py`: the grow path and the routing of
+items down frozen trees (`route_items`).  The reference builds each tree by a per-node recursion (reference:
 src/writer.rs:1167-1261, src/distance/mod.rs:126-171); here one plain
 per-level loop grows **every splitting node of every tree at once**,
 over tensors on the build device:
@@ -20,13 +20,15 @@ The host keeps the segment bookkeeping in numpy and allocates node ids,
 records splits and writes leaves back, exactly as the JAX builder's host
 replay does.  Randomness comes from one explicit `torch.Generator`, so
 forests differ from the JAX package's threefry streams but are
-deterministic for a given seed and device.
+deterministic for a given seed and device.  In streaming mode (a memory
+budget) the item matrix stays on the host and each grow or routing call
+uploads only the rows it names (`BuildContext.device_view`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -198,26 +200,77 @@ class BuildContext:
     metric: type[Metric]
     dims: int
     split_after: int
-    #: device item matrix [cap, sd], extras and header norms [cap]
-    rows_dev: torch.Tensor
-    extras_dev: torch.Tensor
-    hnorms_dev: torch.Tensor
+    #: the build device: every tensor of the grow and the routing lives here
+    device: torch.device
+    #: device item matrix [cap, sd], extras and header norms [cap]; None in
+    #: streaming mode, where the matrix stays on the host and each call
+    #: uploads the rows it needs (`device_view`)
+    rows_dev: Optional[torch.Tensor]
+    extras_dev: Optional[torch.Tensor]
+    hnorms_dev: Optional[torch.Tensor]
     slot_to_id: np.ndarray  # [cap] int64, -1 for free slots
     forest: Forest
     alloc: NodeIdAllocator
     cancel: Callable[[], bool] = lambda: False
+    #: memory budget as the most items one tree-building batch may hold
+    budget_items: Optional[int] = None
+    #: host copies, present only in streaming mode
+    rows_np: Optional[np.ndarray] = None
+    extras_np: Optional[np.ndarray] = None
+    hnorms_np: Optional[np.ndarray] = None
     #: staged split-plane chunks: (matrix, rows) — numpy for committed
     #: rows, device tensors for freshly built levels (pulled at finalize)
     staging_normals: list = field(default_factory=list)
     staging_aux: list = field(default_factory=list)
     staging_rows: int = 0
     on_items_indexed: Callable[[int], None] = lambda n: None
+    #: items written into oversized leaves by a safety valve (grow_trees'
+    #: level cap, the budget mode's regrowth cap)
+    valve_items: int = 0
+    #: device staging cache: the chunks already concatenated on the device
+    _staging_dev: Optional[torch.Tensor] = field(default=None, repr=False)
+    _staging_dev_chunks: int = field(default=0, repr=False)
+    #: sorted (ids, slots) lookup, built once per build on first use
+    _slot_lut: Optional[tuple] = field(default=None, repr=False)
 
     def check_cancel(self) -> None:
         if self.cancel():
             from .errors import BuildCancelled
 
             raise BuildCancelled()
+
+    @property
+    def streaming(self) -> bool:
+        return self.rows_dev is None
+
+    def device_view(self, slots: np.ndarray):
+        """(rows, extras, hnorms, remap, slot_to_id) for a subset of slots.
+
+        Resident mode returns the whole device arrays, an identity remap
+        and the store's slot → id map; streaming mode uploads exactly the
+        unique rows `slots` names and returns a global → local remap and
+        the ids of those local rows."""
+        if not self.streaming:
+            return (
+                self.rows_dev,
+                self.extras_dev,
+                self.hnorms_dev,
+                lambda g: np.asarray(g, np.int64),
+                self.slot_to_id,
+            )
+        uniq = np.unique(np.asarray(slots, np.int64))
+        rows = self.rows_np[uniq]
+        if self.metric.binary:
+            rows = rows.view(np.int32)
+        rows, extras, hnorms = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in (rows, self.extras_np[uniq], self.hnorms_np[uniq])
+        )
+
+        def remap(g):
+            return np.searchsorted(uniq, np.asarray(g, np.int64))
+
+        return rows, extras, hnorms, remap, self.slot_to_id[uniq]
 
     def stage_chunk(self, matrix, aux: np.ndarray) -> int:
         """Append a chunk of normal rows; returns its base row index."""
@@ -243,6 +296,43 @@ class BuildContext:
         if not self.staging_aux:
             return np.zeros(0, np.float32)
         return np.concatenate(self.staging_aux)
+
+    def staging_matrix_dev(self) -> torch.Tensor:
+        """The staged normals on the device, cached incrementally: only the
+        chunks staged since the last call are uploaded and appended (the
+        budget mode calls this once a regrown node, and rebuilding the
+        whole matrix each time would be quadratic traffic)."""
+        sd = self.metric.storage_dim(self.dims)
+        dtype = torch.int32 if self.metric.binary else torch.float32
+        if not self.staging_normals:
+            return torch.zeros((1, sd), dtype=dtype, device=self.device)
+
+        def dev(m):
+            if isinstance(m, np.ndarray):
+                m = torch.from_numpy(m.view(np.int32) if self.metric.binary else m)
+            return m.to(self.device)
+
+        fresh = [dev(m) for m in self.staging_normals[self._staging_dev_chunks :]]
+        if fresh:
+            parts = ([] if self._staging_dev is None else [self._staging_dev]) + fresh
+            self._staging_dev = parts[0] if len(parts) == 1 else torch.cat(parts)
+            self._staging_dev_chunks = len(self.staging_normals)
+        return self._staging_dev
+
+    def ids_to_slots(self, ids: np.ndarray) -> np.ndarray:
+        """Item ids → store slots through a sorted lookup built once.
+        Raises on an id absent from the store instead of clamping it to a
+        wrong slot (that would hide a corrupt index)."""
+        if self._slot_lut is None:
+            live = np.nonzero(self.slot_to_id >= 0)[0]
+            order = np.argsort(self.slot_to_id[live])
+            self._slot_lut = (self.slot_to_id[live][order], live[order])
+        sorted_ids, sorted_slots = self._slot_lut
+        ids64 = np.asarray(ids, np.int64)
+        pos = np.minimum(np.searchsorted(sorted_ids, ids64), max(len(sorted_ids) - 1, 0))
+        if len(sorted_ids) == 0 or not np.array_equal(sorted_ids[pos], ids64):
+            raise KeyError("leaf references item ids absent from the store")
+        return sorted_slots[pos]
 
 
 def _writeback_leaves(ctx, slot_to_id, vals_np, spans) -> None:
@@ -275,8 +365,12 @@ def grow_trees(ctx: BuildContext, seeds: list[tuple[int, np.ndarray]], gen: torc
     seeds = [(nid, np.asarray(slots, dtype=np.int64)) for nid, slots in seeds]
     if not seeds:
         return
-    dev = ctx.rows_dev.device
-    perm = torch.from_numpy(np.concatenate([s for _, s in seeds])).to(dev)
+    dev = ctx.device
+    # resident mode: the whole matrix and slots as they are; streaming
+    # mode: this call's unique rows, uploaded, and local indices into them
+    all_slots = np.concatenate([s for _, s in seeds])
+    rows, extras, hnorms, remap, slot_to_id = ctx.device_view(all_slots)
+    perm = torch.from_numpy(remap(all_slots)).to(dev)
     seg_len = np.asarray([len(s) for _, s in seeds], np.int64)
     seg_start = np.concatenate([[0], np.cumsum(seg_len)[:-1]]).astype(np.int64)
     seg_node = np.asarray([nid for nid, _ in seeds], np.int64)
@@ -295,13 +389,14 @@ def grow_trees(ctx: BuildContext, seeds: list[tuple[int, np.ndarray]], gen: torc
                 pending_leaves.append(
                     (int(seg_node[g]), int(seg_start[g]), int(seg_start[g] + seg_len[g]))
                 )
+            ctx.valve_items += int(seg_len[seg_split].sum())
             break
         split_idx = np.nonzero(seg_split)[0]
         ns = len(split_idx)
         s_arr = seg_start[split_idx]
         ln_arr = seg_len[split_idx]
         left_cnt, none, normals, aux = _level(
-            ctx.metric, ctx.dims, ctx.rows_dev, ctx.extras_dev, ctx.hnorms_dev, perm,
+            ctx.metric, ctx.dims, rows, extras, hnorms, perm,
             torch.from_numpy(s_arr).to(dev), torch.from_numpy(ln_arr).to(dev), gen,
         )
         lc_arr = left_cnt.cpu().numpy().astype(np.int64)
@@ -366,4 +461,124 @@ def grow_trees(ctx: BuildContext, seeds: list[tuple[int, np.ndarray]], gen: torc
         ends = np.sort(np.fromiter((p[2] for p in pending_leaves), np.int64))
         if starts[0] != 0 or not np.all(starts[1:] == ends[:-1]):
             raise AssertionError("pending leaf spans must tile the permutation")
-        _writeback_leaves(ctx, ctx.slot_to_id, perm.cpu().numpy()[: ends[-1]], pending_leaves)
+        _writeback_leaves(ctx, slot_to_id, perm.cpu().numpy()[: ends[-1]], pending_leaves)
+
+
+# ---------------------------------------------------------------------------
+# routing: items down a frozen tree, for incremental inserts and the
+# memory-budgeted build (reference: src/writer.rs:1398-1531)
+# ---------------------------------------------------------------------------
+
+#: lanes per routing call: the [chunk, sd] gathers stay ~0.4 GB at 768-d
+_ROUTE_CHUNK = 1 << 17
+#: no tree is deeper than this; a lane still splitting past it stays put
+_ROUTE_MAX_STEPS = 512
+#: routing steps between host checks of "any lane still moving": a lane
+#: that reached its leaf stays put, so the steps past the last split are
+#: no-ops, and one check a block keeps the walk from being launch-bound
+_ROUTE_BLOCK = 8
+
+
+def _route_leaves(metric, rows, extras, slots, node, kind, left, right, ptr, aux, normals, gen):
+    """Walk every (item slot, start node) lane to its leaf on the device.
+
+    Each step gathers every lane's split normal, takes its margin with the
+    metric's `margin` (the helper the grow's `_margins` uses) and goes
+    right iff the margin's sign bit is clear, the rule `_level` uses; at a
+    normal-less split (`KIND_SPLIT_NONE`) the side is a coin from `gen`
+    (reference: src/writer.rs:1409-1416), drawn only when `gen` is given.
+    The host reads "any lane moving" before every block of `_ROUTE_BLOCK`
+    steps, so lanes that start at leaves cost one check."""
+    from .models.forest import KIND_SPLIT, KIND_SPLIT_NONE
+
+    v = None
+    for _ in range(0, _ROUTE_MAX_STEPS, _ROUTE_BLOCK):
+        k = kind[node]
+        if not bool(((k == KIND_SPLIT) | (k == KIND_SPLIT_NONE)).any()):
+            break
+        if v is None:  # the lanes' rows, gathered once some lane moves
+            v = rows[slots]
+            qf = extras[slots] if metric.has_extra else 1.0
+        for _ in range(_ROUTE_BLOCK):
+            k = kind[node]
+            # a lane at a leaf reads some row and stays put (a leaf's ptr
+            # may be stale after a collapse, or -1)
+            nr = torch.clamp(ptr[node], 0, normals.shape[0] - 1)
+            go_right = ~torch.signbit(metric.margin(normals[nr], aux[nr], v, qf))
+            if gen is not None:
+                coin = torch.rand(node.shape, generator=gen, device=node.device) < 0.5
+                go_right = torch.where(k == KIND_SPLIT_NONE, coin, go_right)
+            moving = (k == KIND_SPLIT) | (k == KIND_SPLIT_NONE)
+            node = torch.where(moving, torch.where(go_right, right[node], left[node]), node)
+    return node
+
+
+def route_lanes(
+    ctx: BuildContext,
+    normals_matrix_dev: torch.Tensor,
+    aux_lookup: np.ndarray,
+    entries: list[tuple[int, np.ndarray]],
+    gen: torch.Generator,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Route item slots from `entries` (node id, slots) down to leaves:
+    (leaf node id, slot) of every lane, in the order of `entries`.
+
+    The split planes are rows of `normals_matrix_dev` (with `aux_lookup`),
+    found through `ctx.forest.ptr`.  The walk runs on `ctx.device` in
+    chunks of `_ROUTE_CHUNK` lanes, with cancel polled once a chunk.
+    Coins at normal-less splits come from `gen` (the reference draws
+    `rng.gen::<bool>()` per item; the JAX package draws threefry bits)."""
+    from .models.forest import KIND_SPLIT_NONE
+
+    f = ctx.forest
+    entries = [(int(nid), np.asarray(s, dtype=np.int64)) for nid, s in entries if len(s)]
+    if not entries:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    all_slots = np.concatenate([s for _, s in entries])
+    starts = np.concatenate([np.full(len(s), nid, np.int64) for nid, s in entries])
+    rows, extras, _, remap, _ = ctx.device_view(all_slots)
+    dev = ctx.device
+    slots_local = torch.from_numpy(remap(all_slots)).to(dev)
+    starts = torch.from_numpy(starts).to(dev)
+    kind, left, right, ptr = (
+        torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+        for a in (f.kind, f.left, f.right, f.ptr)
+    )
+    if not len(aux_lookup):  # a forest of leaves: no plane is ever read
+        aux_lookup = np.zeros(1, np.float32)
+    aux = torch.from_numpy(np.asarray(aux_lookup, np.float32)).to(dev)
+    coins = gen if bool((f.kind == KIND_SPLIT_NONE).any()) else None
+    dest = []
+    for off in range(0, len(all_slots), _ROUTE_CHUNK):
+        ctx.check_cancel()
+        dest.append(
+            _route_leaves(
+                ctx.metric, rows, extras, slots_local[off : off + _ROUTE_CHUNK],
+                starts[off : off + _ROUTE_CHUNK], kind, left, right, ptr, aux,
+                normals_matrix_dev, coins,
+            )
+        )
+    return torch.cat(dest).cpu().numpy(), all_slots
+
+
+def route_items(
+    ctx: BuildContext,
+    normals_matrix_dev: torch.Tensor,
+    aux_lookup: np.ndarray,
+    entries: list[tuple[int, np.ndarray]],
+    gen: torch.Generator,
+) -> dict[int, list[np.ndarray]]:
+    """`route_lanes` grouped by leaf: leaf node id → list of the slot
+    arrays routed there, leaves ascending (reference:
+    insert_items_in_descendants_*, src/writer.rs:1398-1531)."""
+    dest, all_slots = route_lanes(ctx, normals_matrix_dev, aux_lookup, entries, gen)
+    if not len(dest):
+        return {}
+    order = np.argsort(dest, kind="stable")
+    sdest, sslots = dest[order], all_slots[order]
+    cuts = np.nonzero(np.diff(sdest))[0] + 1
+    heads = sdest[np.concatenate([[0], cuts]).astype(np.int64)]
+    collected: dict[int, list[np.ndarray]] = {}
+    for nid, g in zip(heads, np.split(sslots, cuts)):
+        collected.setdefault(int(nid), []).append(g)
+    return collected

@@ -32,6 +32,10 @@ _EPOCHS = itertools.count(1)
 _DEVICE_MIRROR: "OrderedDict[int, tuple]" = OrderedDict()
 _DEVICE_MIRROR_CAP = 4
 
+#: rows the last `ItemStore.device_arrays` call sent to the device (0 when
+#: the mirror was current; the capacity on a full upload)
+mirror_rows_uploaded = 0
+
 
 class ItemStore:
     """Mutable id→vector storage for one index."""
@@ -95,35 +99,46 @@ class ItemStore:
         self._dirty.update(slots)
 
     def device_arrays(self, device):
-        """Device mirror of (rows, norms, extras) on `device`.
+        """Device mirror of (rows, norms, extras) on `device`, synced
+        incrementally.
 
         The mirror persists across builds and readers of one store
-        lineage: a store whose content has not changed since the last sync
-        reuses the resident tensors.  Any change (a dirty slot, an aborted
-        txn, a competing clone, another device) re-uploads the whole
-        matrix with one ``torch.from_numpy(...).to(device)``.  BQ rows go
-        to the device as int32 bit patterns.
+        lineage.  When the cached copy matches this store's last sync,
+        only the slots mutated since then go to the device: one host
+        gather of the dirty rows, scattered with ``index_copy_``, so an
+        incremental build after touching N items uploads N rows.  Growth
+        in capacity pads the mirror with zeros on the device.  Any
+        divergence (an aborted txn, a competing clone, another device, a
+        smaller capacity), or a quarter of the slots dirty, uploads the
+        whole matrix.  The patch writes into a copy made on the device:
+        readers of older snapshots hold the previous tensors (a
+        `DeviceIndex` serves from them), and they must not change.  BQ
+        rows go to the device as int32 bit patterns.
+        `mirror_rows_uploaded` counts the rows this call sent.
         """
         import torch
 
+        global mirror_rows_uploaded
         device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # tensors report "cuda:N": compare the mirror's device with that
+            device = torch.device("cuda", torch.cuda.current_device())
+        cap = self._rows.shape[0]
         ent = _DEVICE_MIRROR.get(self._lineage)
-        reusable = (
+        patchable = (
             ent is not None
             and ent[0] == self._sync_epoch
-            and not self._dirty
             and ent[1].device == device
-            and tuple(ent[1].shape) == self._rows.shape
+            and ent[1].shape[0] <= cap
+            and ent[1].shape[1] == self._rows.shape[1]
         )
-        if reusable:
-            _, rows, norms, extras = ent
+        idx = np.fromiter(self._dirty, np.int64, len(self._dirty))
+        if not patchable or len(idx) * 4 >= cap:
+            rows, norms, extras = self._upload_all(device)
+            mirror_rows_uploaded = cap
         else:
-            # copy=True: on the CPU the mirror must not alias the store
-            host = self._rows.view(np.int32) if self.metric.binary else self._rows
-            rows, norms, extras = (
-                torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
-                for a in (host, self._norms, self._extras)
-            )
+            rows, norms, extras = self._patch(ent[1:], np.sort(idx), device)
+            mirror_rows_uploaded = len(idx)
         if self._epoch == 0:
             self._epoch = next(_EPOCHS)
         self._sync_epoch = self._epoch
@@ -133,6 +148,41 @@ class ItemStore:
         while len(_DEVICE_MIRROR) > _DEVICE_MIRROR_CAP:
             _DEVICE_MIRROR.popitem(last=False)
         return rows, norms, extras
+
+    def _host_rows(self) -> np.ndarray:
+        return self._rows.view(np.int32) if self.metric.binary else self._rows
+
+    def _upload_all(self, device):
+        """The whole matrix, norms and extras on `device` (copy=True: on the
+        CPU the mirror must not alias the store)."""
+        import torch
+
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+            for a in (self._host_rows(), self._norms, self._extras)
+        )
+
+    def _patch(self, mirror, idx: np.ndarray, device):
+        """`mirror` (rows, norms, extras) grown to this capacity with zeros
+        and with the sorted slots `idx` replaced by the store's."""
+        import torch
+
+        cap = self._rows.shape[0]
+        out = []
+        for t, host in zip(mirror, (self._host_rows(), self._norms, self._extras)):
+            pad = cap - t.shape[0]
+            if pad:
+                t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+            elif len(idx):
+                t = t.clone()
+            if len(idx):
+                t.index_copy_(
+                    0,
+                    torch.from_numpy(idx).to(device),
+                    torch.from_numpy(np.ascontiguousarray(host[idx])).to(device),
+                )
+            out.append(t)
+        return tuple(out)
 
     # -- basic ops -----------------------------------------------------
     def __len__(self) -> int:

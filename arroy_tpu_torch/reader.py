@@ -352,7 +352,7 @@ class Reader:
         if self.metric not in ALL_METRICS:
             raise NotImplementedError(
                 f"custom metric {self.metric.name!r}: register_metric is not ported "
-                "(ROADMAP queue 1 item 5)"
+                "(ROADMAP queue 1 item 6)"
             )
         qb = QueryBuilder(self, count)
         if search_k is not None:

@@ -54,11 +54,25 @@ exits non-zero:
    1,001,472) and one batch's queries; the BQ scan (kernel 2 once a
    chunk) streams and equals the matrix on sub-batches of 256, and
    kernel 2 is held against its plain version on the ragged last chunk
-   view.  It prints ms a batch, qps and peak device memory per route, the
-   build times and its wall time.
+   view, and timed on a full chunk beside its plain version and the ±1
+   int8 GEMM.  It prints ms a batch, qps and peak device memory per
+   route, the build times and its wall time;
+9. incremental build — phase 8's euclidean index, kept: the device
+   mirror's two sync paths (patch, full upload) timed at 1-100% dirty
+   slots; (a) a 1% update (10,000 ids deleted, 10,000 overwritten with
+   fresh rows of the same clusters, 10,000 added) rebuilt incrementally,
+   with each progress step's time, the rows the mirror uploaded (at
+   most the dirty slots), lanes routed, seeds regrown, node ids kept and
+   the forest invariants; (b) a fresh build of the updated corpus; (c)
+   the traversal's recall@10 of both at search_k 8000 against f32x1
+   (the incremental within 0.02 of the fresh); (d) two warm rebuilds
+   after re-adding every item with identical bytes (0 mirror rows);
+   (e) a build of 262,144 x 768 within `available_memory(256 MiB)`
+   (streaming) beside a resident one: seconds, peak device memory,
+   invariants and recall (within 0.02).  It launches no kernel.
 
 Kernel launch counts are reset right before each main path (phases 4-5,
-phase 6 and phase 8) and read right after it: every kernel of that path
+phase 6, phase 8 and phase 9) and read right after it: every kernel of that path
 must have launched there.  Launches that hold a kernel against its plain
 version inside a path (`uncounted`) leave its counts as they were.  The
 last lines are the per-kernel JSON record, the nvidia-smi line and the
@@ -807,15 +821,19 @@ def uncounted(*counters):
             c.update(n)
 
 
-def card_corpus(m, d, seed):
+def card_corpus(m, d, seed, parents_seed=None):
     """bench.py's clustered corpus model (`make_corpus`) drawn on the card
     from one seeded generator, in slices of `CORPUS_SLICE` rows with the 64
     parents drawn once, then copied to the host (f32): `make_corpus` at
-    1M rows would build two 6 GB float64 temporaries on the host."""
+    1M rows would build two 6 GB float64 temporaries on the host.  With
+    `parents_seed`, the parents come from that seed and the rows from
+    `seed`: fresh rows of another draw's clusters."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed if parents_seed is None else parents_seed)
     parents = torch.randn((64, d), generator=g, device="cuda")
+    if parents_seed is not None:
+        g = torch.Generator(device="cuda").manual_seed(seed)
     out = np.empty((m, d), np.float32)
     for s in range(0, m, CORPUS_SLICE):
         n = min(CORPUS_SLICE, m - s)
@@ -855,6 +873,7 @@ def large_slice(rec):
     from arroy_tpu_torch import Database, Reader, Writer, search
     from arroy_tpu_torch.models import items
     from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs
+    from arroy_tpu_torch.ops.binary import unpack_bits
 
     t_phase = time.perf_counter()
     # the stores' device mirrors of earlier phases' indexes (an LRU of
@@ -894,6 +913,7 @@ def large_slice(rec):
         return out, search.scan_calls[key] - n0
 
     def build(metric):
+        nonlocal db
         db = Database(None, device="cuda")
         w = Writer(db, 0, D, metric=metric)
         with db.write() as wtxn:
@@ -910,6 +930,7 @@ def large_slice(rec):
 
     # euclidean: f32x1 streams; the same searcher under the budget builds
     # the matrix; the float64 brute force on 32 queries
+    db = None
     r = build("euclidean")
     s = r.searcher(K, engine="exact", precision="f32x1")
     (ref_ids, ref_d), n = scans("exact_scan", lambda: serve(s, "f32x1 scan"))
@@ -965,6 +986,10 @@ def large_slice(rec):
         assert rc >= 0.99, f"{prec} scan recall {rc}"
         del s
     del r
+    # the euclidean index stays for phase 9; its device copies go, so that
+    # the BQ routes' memory counts only their own
+    base = db
+    db._device_cache.clear()
     items._DEVICE_MIRROR.clear()  # the euclidean index's rows
     torch.cuda.empty_cache()
 
@@ -1002,18 +1027,286 @@ def large_slice(rec):
                            bk.bq_hamming_matrix_reference(qw, last)), \
             "kernel 2 differs from its plain version on the last chunk view"
         r2["chunk_ms"] = cuda_ms(lambda: bk.bq_hamming_matrix(qw, full), 10)
+        h = bk.bq_hamming_matrix(qw, full)
     r2["chunk_bound_ms"] = 4.0 * (qw.numel() + full.numel() + BATCH * chunk) / HBM_BPS * 1e3
+    r2["chunk_plain_ms"] = cuda_ms(lambda: bk.bq_hamming_matrix_reference(qw, full), 1)
+    # the ±1 int8 GEMM that computes the same counts (768 - 2 h), as in
+    # phase 3, at the chunk's shape
+    qi, xi = (unpack_bits(t, D).to(torch.int8) for t in (qw, full))
+    assert torch.equal(torch._int_mm(qi, xi.t()), D - 2 * h), "±1 int8 GEMM differs"
+    r2["chunk_gemm_ms"] = cuda_ms(lambda: torch._int_mm(qi, xi.t()), 10)
     say("kernel2", f"bq_hamming on chunk views of the 1M corpus: bit-equal on the last "
         f"({last.shape[0]} rows, {last.data_ptr() % 16} bytes past 16-byte alignment); "
         f"B={BATCH} x {chunk} rows, w={words.shape[1]}: {r2['chunk_ms']:.4f} ms, bound "
-        f"{r2['chunk_bound_ms']:.4f} ms (bytes)")
-    del r, s, qw, words, last, full
+        f"{r2['chunk_bound_ms']:.4f} ms (bytes), plain {r2['chunk_plain_ms']:.2f} ms, ±1 int8 "
+        f"GEMM {r2['chunk_gemm_ms']:.4f} ms")
+    del r, s, qw, words, last, full, h, qi, xi
     items._DEVICE_MIRROR.clear()
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     say("large", json.dumps({"phase8_s": wall, "routes": routes}))
     say("time", f"phase 8 took {wall:.1f} s")
-    return path_launches
+    return path_launches, base, queries
+
+
+#: phase 9: the share of the corpus each change touches (deleted, then
+#: overwritten, then added under new ids), the traversal's search_k and
+#: batches for recall, and the budget build's memory
+UPDATE_N, SK_INCREMENTAL, B_RECALL, N_RECALL_BATCHES = 10_000, 8000, 256, 2
+BUDGET_BYTES = 256 << 20
+#: the progress steps phase 9 times, by what they do
+BUILD_STEPS = {"REMOVE_ITEMS_FROM_EXISTING_TREES": "delete", "RETRIEVING_THE_ITEMS": "mirror",
+               "INSERT_ITEMS_IN_CURRENT_TREES": "route", "CREATE_TREES_FOR_ITEMS": "regrow",
+               "WRITE_THE_METADATA": "finish"}
+
+
+def timed_build(w, wtxn, seed, memory=None):
+    """One `build` with `N_TREES`: (seconds, seconds per progress step, the
+    writer's build_stats).  Each progress callback synchronises the card
+    before it reads the clock, so a step's device work counts in it."""
+    import torch
+
+    from arroy_tpu_torch import writer
+
+    marks = []
+
+    def progress(p):
+        torch.cuda.synchronize()
+        marks.append((BUILD_STEPS.get(p.main.name, p.main.name), time.perf_counter()))
+
+    b = w.builder(seed=seed).n_trees(N_TREES).progress(progress)
+    if memory is not None:
+        b.available_memory(memory)
+    t0 = time.perf_counter()
+    b.build(wtxn)
+    torch.cuda.synchronize()
+    marks.append(("end", time.perf_counter()))
+    steps = {}
+    for (name, t), (_, tn) in zip(marks, marks[1:]):
+        steps[name] = steps.get(name, 0.0) + tn - t
+    return marks[-1][1] - t0, steps, dict(writer.build_stats)
+
+
+def step_text(steps):
+    return ", ".join(f"{k} {steps.get(k, 0.0):.3f}" for k in BUILD_STEPS.values())
+
+
+def check_forest(r, label):
+    """The invariants: every live item in exactly one leaf of every tree,
+    no node shared or left over (`assert_validity`), every leaf within
+    split_after unless a safety valve fired; returns the largest leaf."""
+    from arroy_tpu_torch import writer
+    from arroy_tpu_torch.models.forest import KIND_LEAF
+
+    r.assert_validity()
+    f = r._state.forest
+    assert r.n_trees() == N_TREES
+    biggest = max(len(f.leaves[int(n)]) for n in np.nonzero(f.kind == KIND_LEAF)[0])
+    valve = writer.build_stats.get("valve_items", 0)
+    say("incremental", f"{label}: forest invariants hold ({r.n_trees()} trees, "
+        f"{len(f.leaves)} leaves, largest {biggest} of split_after {D}, valve items {valve})")
+    assert biggest <= D or valve > 0, f"{label}: a leaf of {biggest} items"
+    return biggest
+
+
+def forest_recall(readers, queries, ref_ids):
+    """recall@K of each reader's traversal at `SK_INCREMENTAL` against
+    `ref_ids`, over `N_RECALL_BATCHES` batches of `B_RECALL`."""
+    batches = [queries[i * B_RECALL:(i + 1) * B_RECALL] for i in range(N_RECALL_BATCHES)]
+    out = []
+    for label, r in readers:
+        s = r.searcher(K, search_k=SK_INCREMENTAL, engine="forest", traversal="xla")
+        assert s.route == "traversal", s.route
+        ids, _ = run_batches(s, batches, f"{label} traversal sk={SK_INCREMENTAL}")
+        out.append(recall_of(ids[:, :K], ref_ids))
+    return out
+
+
+def exact_ids(r, queries):
+    batches = [queries[i * B_RECALL:(i + 1) * B_RECALL] for i in range(N_RECALL_BATCHES)]
+    s = r.searcher(K, engine="exact", precision="f32x1")
+    return run_batches(s, batches, "f32x1 reference")[0][:, :K]
+
+
+def mirror_paths(store, dev, rec):
+    """The mirror's two sync paths on `store`'s resident mirror, at several
+    shares of dirty slots: the patch (host gather of the dirty rows, one
+    upload, `index_copy_` into a device copy) against the full upload."""
+    import torch
+
+    from arroy_tpu_torch.models import items
+
+    mirror = items._DEVICE_MIRROR[store._lineage][1:]
+    cap = store.capacity()
+    rng = np.random.default_rng(5)
+    out = {}
+    for share in (0.01, 0.05, 0.25, 0.5, 1.0):
+        idx = np.sort(rng.choice(cap, int(cap * share), replace=False))
+        row = {}
+        for name, fn in (("full", lambda: store._upload_all(dev)),
+                         ("patch", lambda: store._patch(mirror, idx, dev)),
+                         ("full2", lambda: store._upload_all(dev))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            row[name] = time.perf_counter() - t0
+            del got
+        out[share] = {"patch_s": row["patch"], "full_s": min(row["full"], row["full2"])}
+    rec["mirror_paths"] = out
+    say("incremental", "mirror sync at dirty shares (s, host clock, synchronised): " + ", ".join(
+        f"{k:g}: patch {v['patch_s']:.3f} / full {v['full_s']:.3f}" for k, v in out.items()))
+
+
+def incremental_slice(db, queries):
+    """Phase 9: the incremental build at full width, on phase 8's 1M x 768
+    euclidean index (10 trees): (a) a 1% update (deletes, overwrites, new
+    ids) rebuilt incrementally; (b) a fresh build of the updated corpus;
+    (c) the traversal's recall@10 of both; (d) two warm rebuilds after
+    re-adding every item with identical bytes; (e) a memory-budgeted build
+    at 262,144 x 768 beside a resident one."""
+    import torch
+
+    from arroy_tpu_torch import Database, Reader, Writer
+    from arroy_tpu_torch.models import items
+
+    t_phase = time.perf_counter()
+    rec = {}
+    w = Writer(db, 0, D)
+    # the serving state: a reader of the committed index holds its mirror
+    t0 = time.perf_counter()
+    Reader.open(db.read(), 0, db)._device()
+    torch.cuda.synchronize()
+    rec["base_mirror"] = {"rows": items.mirror_rows_uploaded, "s": time.perf_counter() - t0}
+    say("incremental", f"base index: mirror of {items.mirror_rows_uploaded} rows uploaded in "
+        f"{rec['base_mirror']['s']:.2f} s")
+    before = db.read().state(0)
+    used_before = before.forest.used_node_ids()
+    cap_before = before.store.capacity()
+    mirror_paths(before.store, db.device, rec)
+
+    # (a) the 1% update: delete, overwrite, add (into the freed slots)
+    ids = np.random.default_rng(9).permutation(M_LARGE)
+    gone, moved = ids[:UPDATE_N], ids[UPDATE_N:2 * UPDATE_N]
+    new_ids = np.arange(M_LARGE, M_LARGE + UPDATE_N)
+    fresh = card_corpus(2 * UPDATE_N, D, 43, parents_seed=42)
+    with db.write() as wtxn:
+        assert w.del_items(wtxn, gone) == UPDATE_N
+        w.add_items(wtxn, moved, fresh[:UPDATE_N])
+        w.add_items(wtxn, new_ids, fresh[UPDATE_N:])
+        sec, steps, stats = timed_build(w, wtxn, seed=45)
+        cap = wtxn.state(0).store.capacity()
+    rec["update"] = {"build_s": sec, "steps_s": steps, **stats}
+    say("incremental", f"(a) 1% update ({UPDATE_N} deleted, {UPDATE_N} overwritten, {UPDATE_N} "
+        f"added): build {sec:.2f} s; steps (s) {step_text(steps)}")
+    say("incremental", f"(a) mirror rows uploaded {stats['mirror_rows']} of {cap} (capacity "
+        f"{cap_before} -> {cap}); lanes routed {stats['routed_lanes']}; seeds regrown "
+        f"{stats['seeds']} holding {stats['seed_items']} items; valve items {stats['valve_items']}")
+    assert not stats["streaming"]
+    assert stats["mirror_rows"] <= 2 * UPDATE_N + (cap - cap_before), stats
+    assert stats["routed_lanes"] == 2 * UPDATE_N * N_TREES, stats
+    r_inc = Reader.open(db.read(), 0, db)
+    check_forest(r_inc, "(a) incremental")
+    live = r_inc._state.metadata.items
+    assert not live.contains_many(gone.astype(np.uint32)).any()
+    assert live.contains_many(new_ids.astype(np.uint32)).all() and len(live) == M_LARGE
+    used_after = r_inc._state.forest.used_node_ids()
+    kept = len(np.intersect1d(used_before, used_after))
+    rec["update"]["nodes_kept"] = [kept, len(used_before), len(used_after)]
+    say("incremental", f"(a) node ids surviving from before: {kept} of {len(used_before)} "
+        f"({kept / len(used_before):.4f}); {len(used_after)} nodes now")
+
+    # (b) a fresh build of the same updated corpus
+    st = r_inc._state
+    all_ids = st.store.ids()
+    vecs = st.store.rows()[st.store.slots_of(all_ids)]
+    fdb = Database(None, device="cuda")
+    fw = Writer(fdb, 0, D)
+    with fdb.write() as wtxn:
+        t0 = time.perf_counter()
+        fw.add_items(wtxn, all_ids, vecs)
+        t_add = time.perf_counter() - t0
+        fsec, _, _ = timed_build(fw, wtxn, seed=42)
+    rec["fresh"] = {"add_items_s": t_add, "build_s": fsec}
+    say("incremental", f"(b) fresh build of the updated corpus: add_items {t_add:.2f} s, build "
+        f"{fsec:.2f} s (incremental: {sec:.2f} s, {sec / fsec:.3f} of it)")
+    r_fresh = Reader.open(fdb.read(), 0, fdb)
+
+    # (c) recall@10 of both against f32x1 on the updated corpus
+    ref = exact_ids(r_inc, queries)
+    rc_inc, rc_fresh = forest_recall((("incremental", r_inc), ("fresh", r_fresh)), queries, ref)
+    rec["recall"] = {"incremental": rc_inc, "fresh": rc_fresh}
+    say("incremental", f"(c) traversal recall@{K} at search_k {SK_INCREMENTAL} vs f32x1: "
+        f"incremental {rc_inc:.4f}, fresh {rc_fresh:.4f}")
+    assert rc_inc >= rc_fresh - 0.02, (rc_inc, rc_fresh)
+    # the fresh index's mirror goes; the incremental index's stays for (d)
+    items._DEVICE_MIRROR.pop(r_fresh._state.store._lineage)
+    del r_fresh, fdb, fw, vecs
+    torch.cuda.empty_cache()
+
+    # (d) warm rebuilds: every item re-added with identical bytes, twice
+    warm = []
+    for seed in (43, 44):
+        with db.write() as wtxn:
+            st = wtxn.state(0)
+            all_ids = st.store.ids()
+            vecs = st.store.rows()[st.store.slots_of(all_ids)]
+            t0 = time.perf_counter()
+            w.add_items(wtxn, all_ids, vecs)
+            t_add = time.perf_counter() - t0
+            wsec, steps, stats = timed_build(w, wtxn, seed=seed)
+        warm.append({"add_items_s": t_add, "build_s": wsec, "steps_s": steps,
+                     "mirror_rows": stats["mirror_rows"]})
+        say("incremental", f"(d) warm rebuild seed {seed}: add_items {t_add:.2f} s, build "
+            f"{wsec:.2f} s, mirror rows uploaded {stats['mirror_rows']}; steps (s) "
+            f"{step_text(steps)}")
+        assert stats["mirror_rows"] == 0, stats
+    rec["warm"] = warm
+    check_forest(Reader.open(db.read(), 0, db), "(d) warm rebuild")
+    del r_inc, w, st, vecs
+    db.close()  # its device index goes, so (e) holds only its own
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+
+    # (e) the budget build at 262,144 x 768 beside a resident build
+    xb = card_corpus(M_PROBE + N_RECALL_BATCHES * B_RECALL, D, 42)
+    xb, qb = xb[:M_PROBE], xb[M_PROBE:]
+    out = []
+    for label, memory in (("resident", None), ("budget", BUDGET_BYTES)):
+        bdb = Database(None, device="cuda")
+        bw = Writer(bdb, 0, D)
+        with bdb.write() as wtxn:
+            bw.add_items(wtxn, np.arange(M_PROBE, dtype=np.uint32), xb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+            bsec, steps, stats = timed_build(bw, wtxn, seed=42, memory=memory)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        rb = Reader.open(bdb.read(), 0, bdb)
+        check_forest(rb, f"(e) {label}")
+        out.append((label, rb))
+        rec[label] = {"build_s": bsec, "peak_gib": peak, "held_gib": held, "steps_s": steps,
+                      **stats}
+        say("incremental", f"(e) {label} build of {M_PROBE} x {D}: {bsec:.2f} s, peak device "
+            f"memory {peak:.2f} GiB, {peak - held:.2f} above the {held:.2f} held before; "
+            f"streaming {stats['streaming']}, "
+            f"budget items {stats['budget_items']}, seeds {stats['seeds']}; steps (s) "
+            f"{step_text(steps)}")
+    assert not rec["resident"]["streaming"] and rec["budget"]["streaming"]
+    assert rec["budget"]["budget_items"] < M_PROBE
+    ref = exact_ids(out[0][1], qb)
+    rc_res, rc_bud = forest_recall(out, qb, ref)
+    rec["recall_budget"] = {"resident": rc_res, "budget": rc_bud}
+    say("incremental", f"(e) traversal recall@{K} at search_k {SK_INCREMENTAL}: resident "
+        f"{rc_res:.4f}, budget {rc_bud:.4f}")
+    assert rc_bud >= rc_res - 0.02, (rc_res, rc_bud)
+    del out, rb
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    rec["phase9_s"] = wall
+    say("incremental", json.dumps(rec))
+    say("time", f"phase 9 took {wall:.1f} s")
 
 
 def main() -> int:
@@ -1114,12 +1407,24 @@ def main() -> int:
     for k in fs.launches:
         fs.launches[k] = 0
     bk.launches["bq_hamming"] = 0
-    large_launches = large_slice(rec)
+    large_launches, base, queries = large_slice(rec)
     say("launches", f"large-corpus path: {json.dumps(large_launches)}")
     for name, n in large_launches.items():
         assert n > 0, f"{name} never launched on the large-corpus path"
         rec[name]["phase8_launches"] = n
     say("time", f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9. the incremental build on phase 8's euclidean index (no kernel of
+    # its own: routing and the grow are plain PyTorch, so no count moves)
+    counters = (fs.launches, bk.launches, gs.launches)
+    with uncounted(*counters):
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        incremental_slice(base, queries)
+        say("launches", f"incremental path: {json.dumps({k: v for c in counters for k, v in c.items()})}")
+    del base, queries
+    say("time", f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its main path"
         rec[name]["launches"] = n

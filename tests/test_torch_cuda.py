@@ -576,3 +576,184 @@ def test_cuda_serving_bf16_matches_cpu(tmp_path, monkeypatch, engine, precision)
         assert recall(got[0], want[0]) >= 0.99
     else:
         tie_aware_equal(*got, *want, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the incremental build: the patched device mirror, the delete pass and the
+# routing on the card
+# ---------------------------------------------------------------------------
+
+ALL_METRICS = (
+    "euclidean", "cosine", "dot-product", "manhattan",
+    "binary quantized euclidean", "binary quantized manhattan", "binary quantized cosine",
+)
+
+
+def _host_arrays(s):
+    rows = s.rows().view(np.int32) if s.metric.binary else s.rows()
+    return rows, s.norms(), s.extras()
+
+
+def _mirror_matches(s, dev):
+    from arroy_tpu_torch.models import items
+
+    got = s.device_arrays(dev)
+    assert all(t.device.type == "cuda" for t in got)
+    for t, h in zip(got, _host_arrays(s)):
+        np.testing.assert_array_equal(t.cpu().numpy(), h)
+    return items.mirror_rows_uploaded
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "binary quantized cosine"])
+def test_cuda_mirror_patch_matches_fresh_upload(metric):
+    """The mirror on the card, patched after puts, deletes, growth in
+    capacity and clone divergence, equals the host arrays (a fresh upload)."""
+    from arroy_tpu_torch.metrics import resolve_metric
+    from arroy_tpu_torch.models.items import ItemStore
+
+    dev = require_cuda()
+    s = ItemStore(resolve_metric(metric), 96)
+    rng = np.random.default_rng(3)
+    s.put_many(np.arange(200), rng.standard_normal((200, 96)).astype(np.float32))
+    assert _mirror_matches(s, dev) == s.capacity()
+    s.put(2, rng.standard_normal(96).astype(np.float32))
+    s.delete(7)
+    assert _mirror_matches(s, dev) == 2
+    cap = s.capacity()
+    s.put_many(np.arange(1000, 1000 + cap - 199), rng.standard_normal((cap - 199, 96)).astype(np.float32))
+    s.device_arrays(dev)
+    s.put_many(np.arange(5000, 5010), rng.standard_normal((10, 96)).astype(np.float32))
+    assert s.capacity() > cap and _mirror_matches(s, dev) == 10
+    a, b = s.clone(), s.clone()
+    a.put(0, np.ones(96, np.float32))
+    assert _mirror_matches(a, dev) == 1
+    b.put(0, np.full(96, 2.0, np.float32))
+    assert _mirror_matches(b, dev) == b.capacity()
+
+
+def _forests_equal(a, b):
+    for f in ("kind", "left", "right", "ptr", "normals", "aux"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert a.roots == b.roots and sorted(a.leaves) == sorted(b.leaves)
+    for nid, ids in a.leaves.items():
+        np.testing.assert_array_equal(ids, b.leaves[nid])
+
+
+def test_cuda_delete_only_build_matches_cpu(tmp_path):
+    """A delete-only incremental build (no random draw) gives the same
+    forest on the card as on the CPU, from the same files."""
+    import shutil
+
+    dev = require_cuda()
+    x = np.random.default_rng(5).standard_normal((3000, 32)).astype(np.float32)
+    db = Database(str(tmp_path / "a"), device="cpu")
+    w = Writer(db, 0, 32)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(3000), x)
+        w.builder(seed=1).n_trees(4).split_after(16).build(wtxn)
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    forests = []
+    for path, device in ((tmp_path / "a", "cpu"), (tmp_path / "b", dev)):
+        db = Database(str(path), device=device)
+        w = Writer(db, 0, 32)
+        with db.write() as wtxn:
+            w.del_items(wtxn, np.arange(0, 3000, 3))
+            w.builder(seed=2).n_trees(4).split_after(16).build(wtxn)
+        r = Reader.open(db.read(), 0, db)
+        r.assert_validity()
+        forests.append(r._state.forest)
+    _forests_equal(*forests)
+
+
+@pytest.mark.parametrize("metric", ALL_METRICS)
+def test_cuda_route_items_matches_cpu(metric):
+    """`route_items` on the card lands every lane where the CPU does, but
+    for lanes whose path meets a margin under the sums' rounding (the two
+    devices sum in other orders), which must be few, or a split without a
+    normal (a coin from each device's own generator); both are counted."""
+    from arroy_tpu_torch import builder
+    from arroy_tpu_torch.models.forest import KIND_LEAF, KIND_SPLIT, KIND_SPLIT_NONE, NodeIdAllocator
+
+    dev = require_cuda()
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4000, 48)).astype(np.float32)
+    db = Database(None, device="cpu")
+    w = Writer(db, 0, 48, metric=metric)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(3000), x[:3000])
+        w.builder(seed=3).n_trees(4).split_after(24).build(wtxn)
+    with db.write() as wtxn:  # fresh items, not yet in any tree
+        w.add_items(wtxn, np.arange(3000, 4000), x[3000:])
+        st = wtxn.state(0)
+        slots = st.store.slots_of(np.arange(4000))
+        f = st.forest
+        routed = []
+        for device in ("cpu", dev):
+            rows, norms, extras = st.store.device_arrays(device)
+            ctx = builder.BuildContext(
+                metric=st.metric, dims=48, split_after=24, device=torch.device(device),
+                rows_dev=rows, extras_dev=extras, hnorms_dev=norms,
+                slot_to_id=st.store.slot_ids(), forest=f,
+                alloc=NodeIdAllocator(f.used_node_ids()), staging_normals=[f.normals],
+                staging_aux=[np.asarray(f.aux, np.float32)], staging_rows=len(f.aux),
+            )
+            gen = torch.Generator(device=device).manual_seed(0)
+            out = builder.route_items(ctx, ctx.staging_matrix_dev(), ctx.staging_aux_np(),
+                                      [(r, slots) for r in f.roots], gen)
+            leaf = {}
+            for nid, ls in out.items():
+                assert f.kind[nid] == KIND_LEAF
+                for s_ in np.concatenate(ls).tolist():
+                    leaf.setdefault(s_, []).append(nid)
+            routed.append({k: sorted(v) for k, v in leaf.items()})
+        wtxn.abort()
+    cpu, card = routed
+    assert sorted(cpu) == sorted(card) == sorted(slots.tolist())
+    differ = [s_ for s_ in cpu if cpu[s_] != card[s_]]
+    # walk each differing lane's CPU path in every tree: it must meet a coin
+    # or a split whose |margin| is within 1e-5 of the sum of its terms'
+    # magnitudes (binary metrics: exact integer sums, so only coins)
+    rows, _, extras = st.store.device_arrays("cpu")
+    normals = torch.from_numpy(f.normals.view(np.int32) if st.metric.binary else f.normals)
+    why = {"coin": 0, "near": 0, "none": 0}
+    for s_ in differ:
+        seen = set()
+        for root in f.roots:
+            nid = root
+            while f.kind[nid] != KIND_LEAF:
+                if f.kind[nid] == KIND_SPLIT_NONE:
+                    seen.add("coin")
+                    break
+                n, a_ = normals[f.ptr[nid]], float(f.aux[f.ptr[nid]])
+                v = rows[s_]
+                qf = float(extras[s_]) if st.metric.has_extra else 1.0
+                m = float(st.metric.margin(n, torch.tensor(a_), v, qf))
+                if not st.metric.binary:
+                    if abs(m) <= 1e-5 * (float((n.abs() * v.abs()).sum()) + abs(a_ * qf)):
+                        seen.add("near")
+                nid = int(f.left[nid]) if np.signbit(m) else int(f.right[nid])
+        why["coin" if "coin" in seen else "near" if "near" in seen else "none"] += 1
+    assert why["none"] == 0, f"{len(differ)} lanes differ: {why}"
+    assert why["near"] <= 0.01 * len(slots), why
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "binary quantized cosine"])
+def test_cuda_budget_build_keeps_the_invariants(metric):
+    from arroy_tpu_torch import writer
+    from arroy_tpu_torch.metrics import resolve_metric
+    from arroy_tpu_torch.models.forest import KIND_LEAF
+
+    dev = require_cuda()
+    sd = resolve_metric(metric).storage_dim(64)
+    x = np.random.default_rng(9).standard_normal((5000, 64)).astype(np.float32)
+    db = Database(None, device=dev)
+    w = Writer(db, 0, 64, metric=metric)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(5000), x)
+        w.builder(seed=4).n_trees(5).split_after(32).available_memory(600 * (4 + 4 * sd)).build(wtxn)
+    assert writer.build_stats["streaming"] and writer.build_stats["valve_items"] == 0
+    r = Reader.open(db.read(), 0, db, metric=metric)
+    r.assert_validity()
+    f = r._state.forest
+    assert r.n_trees() == 5
+    assert max(len(f.leaves[int(n)]) for n in np.nonzero(f.kind == KIND_LEAF)[0]) <= 32
