@@ -26,7 +26,7 @@ chosen; `Writer`, `Reader` and the device index take it from there::
     print(r.searcher(10)(np.random.rand(3, 5)))
 """
 
-from . import distances
+from . import distances, internals
 from .errors import (
     ArroyError,
     BuildCancelled,
@@ -76,5 +76,6 @@ __all__ = [
     "Writer",
     "WriterProgress",
     "distances",
+    "internals",
     "metric_by_name",
 ]

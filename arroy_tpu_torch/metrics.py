@@ -481,6 +481,30 @@ def metric_by_name(name: str) -> type[Metric]:
         ) from None
 
 
+def register_metric(cls: type[Metric]) -> type[Metric]:
+    """Register a custom `Metric` subclass under its ``name``.
+
+    The custom-`Distance` extension point (the reference exposes its
+    `Distance` trait publicly for embedders, reference: src/lib.rs:99,
+    src/distance/mod.rs:40-124).  After registration the metric resolves
+    by name everywhere a built-in does — `Writer`, `Reader.open`,
+    persistence reload, CLI ``--distance`` flags.  Usable as a class
+    decorator; re-registering the same class is a no-op, but a *new*
+    class under an existing name is rejected (an index built with one
+    formula must never silently reopen with another).
+    """
+    if not (isinstance(cls, type) and issubclass(cls, Metric)):
+        raise TypeError(f"not a Metric subclass: {cls!r}")
+    name = getattr(cls, "name", None)
+    if not name or name == "?":
+        raise ValueError(f"{cls.__name__} needs a distinct `name` attribute")
+    prev = _BY_NAME.get(name)
+    if prev is not None and prev is not cls:
+        raise ValueError(f"distance {name!r} is already registered ({prev.__name__})")
+    _BY_NAME[name] = cls
+    return cls
+
+
 def resolve_metric(metric) -> type[Metric]:
     if isinstance(metric, str):
         return metric_by_name(metric)

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .metrics import ALL_METRICS
 from .models.forest import KIND_LEAF, KIND_SPLIT, KIND_SPLIT_NONE
 from .ops.binary import (
     WORD_BITS,
@@ -607,8 +608,14 @@ def make_probe_fn(
     # metrics score with real error at high d, so their cut tracks HALF
     # the candidate budget, with the reference's 3x BQ oversampling as
     # the floor (reference: src/distance/binary_quantized_cosine.rs:36).
-    # Binary METRICS rank exactly in-block and take the plain cut.
-    estimate = dtype == "bq" and not idx.metric.binary
+    # Binary METRICS rank exactly in-block and take the plain cut.  A
+    # custom metric (`register_metric`) is scored in-block by the generic
+    # branch's dot product, a proxy of its own distance, so its cut is an
+    # estimate's too.  (The JAX package cuts it at 512, where recall
+    # stalls as search_k grows: on an H100, a registered euclidean at
+    # 262,144 x 768 reached recall@10 0.93 / 0.94 at search_k 8000 /
+    # 16000, and 0.968 at 8000 with this cut; PERF.md §6.)
+    estimate = (dtype == "bq" and not idx.metric.binary) or idx.metric not in ALL_METRICS
     over = 3 if estimate else 1
     floor = max(32 * k * over, 512 * over)
     if estimate:

@@ -5,7 +5,8 @@ distance and pending-update state (reference: src/reader.rs:140-177);
 `searcher()` returns a bound serving handle over the database's device.
 The exact engine serves every built-in metric (``engine="auto"`` picks
 it, as in the JAX package, unless the corpus holds more items than
-``ARROY_EXACT_MAX_ITEMS``).  ``engine="forest"`` serves the leaf-probe
+``ARROY_EXACT_MAX_ITEMS``; a custom metric, which has no exact engine,
+goes to the forest).  ``engine="forest"`` serves the leaf-probe
 engine (``traversal="probe"``, which ``"auto"`` resolves to at 262,144
 items and above) or the reference's best-first traversal
 (``traversal="xla"``, and ``"auto"`` below 262,144 items).  `nns(count)`
@@ -23,8 +24,8 @@ import numpy as np
 import torch
 
 from .errors import InvalidVecDimension, MissingMetadata, NeedBuild, UnmatchingDistance
-from .metrics import ALL_METRICS, Metric, resolve_metric
-from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
+from .metrics import Metric, resolve_metric
+from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT, KIND_SPLIT_NONE
 from .search import (
     exact_batch,
     exact_engine_supported,
@@ -348,12 +349,9 @@ class Reader:
         src/reader.rs:330-335).  ``multipop`` is the best-first
         traversal's pops per step: 1 (what ``"auto"`` means unless
         ``ARROY_MULTIPOP`` says otherwise) is the reference's strict
-        order; the multi-pop variant is not ported and raises."""
-        if self.metric not in ALL_METRICS:
-            raise NotImplementedError(
-                f"custom metric {self.metric.name!r}: register_metric is not ported "
-                "(ROADMAP queue 1 item 6)"
-            )
+        order; the multi-pop variant is not ported and raises.  A custom
+        metric (`metrics.register_metric`) has no exact engine, so
+        ``engine="auto"`` serves it through the forest."""
         qb = QueryBuilder(self, count)
         if search_k is not None:
             qb.search_k(search_k)
@@ -417,6 +415,36 @@ class Reader:
             leaf=len(self._state.metadata.items),
             tree_stats=[walk(r) for r in self._state.metadata.roots],
         )
+
+    # -- plot (reference: src/reader.rs:403-469) -------------------------
+    def plot_internals_tree_nodes(self) -> str:
+        """The first tree as Graphviz dot: normal-less splits in red, each
+        edge labelled with the item count of the subtree it leads to."""
+        f = self._state.forest
+        lines = ["digraph {", "\tlabel=metadata", ""]
+        roots = self._state.metadata.roots
+        if roots:
+            tree = roots[0]
+            lines.append("\tsubgraph {")
+            lines.append("\t\troot [color=blue]")
+            lines.append(f"\t\troot -> {tree}")
+            explore = [int(tree)]
+            while explore:
+                nid = explore.pop()
+                k = f.kind[nid]
+                if k == KIND_LEAF:
+                    lines.append(f'\t\t{nid} [label="{nid}"]')
+                elif k in (KIND_SPLIT, KIND_SPLIT_NONE):
+                    if k == KIND_SPLIT_NONE:
+                        lines.append(f"\t\t{nid} [color=red]")
+                    ln, rn = int(f.left[nid]), int(f.right[nid])
+                    lines.append(f'\t\t{nid} -> {ln} [taillabel="{len(f.subtree_items(ln))}"]')
+                    lines.append(f'\t\t{nid} -> {rn} [taillabel="{len(f.subtree_items(rn))}"]')
+                    explore.append(ln)
+                    explore.append(rn)
+            lines.append("\t}")
+        lines.append("}")
+        return "\n".join(lines) + "\n"
 
     # -- invariants (reference: src/reader.rs:509-589) --------------------
     def assert_validity(self) -> None:

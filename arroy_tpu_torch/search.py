@@ -679,8 +679,16 @@ def _rescore_matmul_scan(metric, dims, k, chunk, slot_to_id, rows, aux, cand, qv
     return out_ids, out_d
 
 
+#: the metrics `_matmul_distance` computes: a matmul re-score serves these
+#: only.  The JAX package also sends a custom metric (`register_metric`)
+#: there, where its branch computes dot-product distances whatever the
+#: metric's formulas (wrong ids, distances of 0 for a custom euclidean);
+#: the port re-scores a custom metric per candidate with its own formulas.
+_MATMUL_METRICS = ("euclidean", "cosine", "dot-product")
+
+
 def rescore_mode(metric, b: int, cap: int, m: int, want: str = "auto") -> str:
-    if want == "exact" or metric.binary or metric.name == "manhattan":
+    if want == "exact" or metric.binary or metric.name not in _MATMUL_METRICS:
         return "exact"
     if want == "matmul":
         return "matmul"

@@ -270,6 +270,23 @@ class Writer:
         ids = st.store.ids()
         return ((int(i), st.store.get_vector(int(i))) for i in ids)
 
+    def prepare_changing_distance(self, wtxn: WriteTxn, new_metric) -> "Writer":
+        """Clear the tree nodes and re-encode the items for a new distance;
+        returns the writer to build with (reference: src/writer.rs:288-319)."""
+        new_metric = resolve_metric(new_metric)
+        if new_metric is not self.metric:
+            st = wtxn.state(self.index)
+            if st is not None:
+                st = wtxn.state_mut(self.index)
+                ids = st.store.ids()
+                vectors = st.metric.decode_np(st.store.rows()[st.store.slots_of(ids)], st.dims)
+                st.metric = new_metric
+                st.store = items_mod.ItemStore(new_metric, self.dimensions)
+                st.store.put_many(ids, vectors)
+                st.forest = Forest()
+                st.metadata = None
+        return Writer(self.database, self.index, self.dimensions, new_metric)
+
     def builder(self, seed: int = 42) -> ArroyBuilder:
         return ArroyBuilder(self, seed)
 

@@ -69,11 +69,31 @@ exits non-zero:
    after re-adding every item with identical bytes (0 mirror rows);
    (e) a build of 262,144 x 768 within `available_memory(256 MiB)`
    (streaming) beside a resident one: seconds, peak device memory,
-   invariants and recall (within 0.02).  It launches no kernel.
+   invariants and recall (within 0.02).  It launches no kernel;
+10. operator surface — the CLI tools run in-process through `main(argv)`
+   on the card, their standard output parsed: (a) `sample_vectors`
+   (262,144 x 768, bench.py's corpus model: 64 parents, seed 42) →
+   `import_vectors` (10 trees) → `stats` → `check` → `graph` (valid dot
+   for the first tree) → `search_bench` (`nns()` in batches of 256, at
+   the default search_k and at 8000) → `recall_sweep` at 100,000 items
+   with the exact point (kernel 1, recall@10 >= 0.99) and again under
+   binary quantized cosine (kernel 2) → `compare_exact` → `fuzz` (10 s) →
+   `build_only` → `upgrade` (a no-op); (b) 100,000 x 768 of the same
+   corpus written in the 1.0.0 npy layout, one batch of 2048 served by
+   the exact engine and the traversal, `upgrade`, reopened: 1.2.0 in a
+   container, and the same batch answers bit for bit on both engines;
+   (c) a custom metric (euclidean under the name "half-euclidean",
+   registered) built over the 262,144 items, reopened from disk and
+   served by `searcher(10)`, which must choose the forest and probe
+   (kernel 3) to recall@10 >= 0.95 against f32x1 at the first search_k
+   of 2000·2^n, and whose forest equals the euclidean one node for node;
+   (d) one exact batch inside `utils.profiling.trace`, whose trace must
+   name kernel 1's CUDA function.  It prints each part's time and its
+   launches per kernel instance.
 
 Kernel launch counts are reset right before each main path (phases 4-5,
-phase 6, phase 8 and phase 9) and read right after it: every kernel of that path
-must have launched there.  Launches that hold a kernel against its plain
+phase 6, phase 8, phase 9 and phase 10) and read right after it: every
+kernel of that path must have launched there.  Launches that hold a kernel against its plain
 version inside a path (`uncounted`) leave its counts as they were.  The
 last lines are the per-kernel JSON record, the nvidia-smi line and the
 result.
@@ -82,7 +102,11 @@ result.
 from __future__ import annotations
 
 import contextlib
+import importlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -101,6 +125,9 @@ TARGET_RECALL, SEARCH_K0, SK_DOUBLINGS = 0.95, 2000, 3
 M_LARGE, N_LARGE_BATCHES, B_MATRIX = 1_000_000, 2, 256
 #: rows drawn (and brute-forced) at a time on the card
 CORPUS_SLICE = 65_536
+#: phase 10: the upgrade's share of the CLI corpus, and the batch served
+#: before and after it
+M_UPGRADE, B_UPGRADE = 100_000, 2048
 KERNEL_SOURCES = ("fused_select", "hamming", "gather_score")
 #: published peaks of one H100 SXM at 700 W (dense): bytes/s and op/s
 HBM_BPS = 3.35e12
@@ -1309,6 +1336,277 @@ def incremental_slice(db, queries):
     say("time", f"phase 9 took {wall:.1f} s")
 
 
+NUM = r"([0-9]+(?:\.[0-9]+)?)"
+
+
+def run_tool(name, argv, prints=True):
+    """One CLI tool in-process through its `main(argv)` on the card; returns
+    its standard output, each of whose first lines is echoed.  A tool that
+    raises fails the phase, and so does one that prints nothing where it
+    should (`prints`)."""
+    tool = importlib.import_module(f"arroy_tpu_torch.cli.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tool.main(argv)
+    out = buf.getvalue()
+    lines = out.splitlines()
+    for line in lines[:14]:
+        say("cli", f"  {line}")
+    if len(lines) > 14:
+        say("cli", f"  ... ({len(lines) - 14} more lines)")
+    say("cli", f"{name} {' '.join(argv)}: {time.perf_counter() - t0:.2f} s")
+    assert out.strip() or not prints, f"{name} printed nothing"
+    return out
+
+
+def grab(pattern, out):
+    """The numbers of `pattern`'s groups in `out` (the tool printed it)."""
+    m = re.search(pattern, out)
+    assert m, f"expected {pattern!r} in {out!r}"
+    return [float(g) for g in m.groups()]
+
+
+@contextlib.contextmanager
+def env(name, value):
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = saved
+
+
+def check_dot(path, forest):
+    """`graph`'s file is Graphviz dot of the first tree: every split has two
+    out-edges, every leaf of the tree is labelled once, and the root's two
+    edges count every item of the tree."""
+    from arroy_tpu_torch.models.forest import KIND_LEAF
+
+    with open(path) as f:
+        lines = f.read().splitlines()
+    assert lines[0] == "digraph {" and lines[-1] == "}", (lines[:3], lines[-2:])
+    root = int(forest.roots[0])
+    assert f"\t\troot -> {root}" in lines
+    edges = [tuple(map(int, m.groups())) for m in
+             (re.fullmatch(r'\t\t(\d+) -> (\d+) \[taillabel="(\d+)"\]', ln) for ln in lines) if m]
+    leaves = [int(m.group(1)) for m in (re.fullmatch(r'\t\t(\d+) \[label="\d+"\]', ln) for ln in lines) if m]
+    out = {}
+    for a, b, _ in edges:
+        out.setdefault(a, []).append(b)
+    assert all(len(v) == 2 for v in out.values())
+    tree_leaves, stack = [], [root]
+    while stack:
+        nid = stack.pop()
+        if forest.kind[nid] == KIND_LEAF:
+            tree_leaves.append(nid)
+        else:
+            assert sorted(out[nid]) == sorted((int(forest.left[nid]), int(forest.right[nid])))
+            stack += out[nid]
+    assert sorted(leaves) == sorted(tree_leaves)
+    n_items = sum(n for a, _, n in edges if a == root)
+    return len(edges), len(leaves), n_items
+
+
+def same_forest(a, b) -> bool:
+    """Node for node: kinds, children, pointers, normals, biases, roots and
+    every leaf's ids."""
+    arrays = ("kind", "left", "right", "ptr", "normals", "aux")
+    return (all(np.array_equal(getattr(a, n), getattr(b, n)) for n in arrays)
+            and list(a.roots) == list(b.roots) and a.leaves.keys() == b.leaves.keys()
+            and all(np.array_equal(a.leaves[n], b.leaves[n]) for n in a.leaves))
+
+
+def operator_slice(tmp):
+    """Phase 10: the CLI, the 1.0.0 → 1.2.0 upgrade, a custom metric and the
+    profiler, on the card.  Returns the launches of each kernel instance in
+    the phase."""
+    import torch
+
+    from arroy_tpu_torch import Database, Reader, Writer, internals
+    from arroy_tpu_torch.metrics import Euclidean
+    from arroy_tpu_torch.models import items
+    from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
+    from arroy_tpu_torch.utils import profiling
+    from arroy_tpu_torch.version import CURRENT_VERSION
+
+    counters = (fs.launches, bk.launches, gs.launches)
+
+    def counts():
+        return {k: v for c in counters for k, v in c.items()}
+
+    t_phase = time.perf_counter()
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+    rec = {}
+
+    def part_done(part, t0, c0):
+        moved = {k: n - c0[k] for k, n in counts().items() if n != c0[k]}
+        rec[part] = {"s": time.perf_counter() - t0, "launches": moved}
+        say("cli", f"part ({part}) took {rec[part]['s']:.1f} s, launches {json.dumps(moved)}")
+
+    # (a) the CLI at full width
+    t0, c0 = time.perf_counter(), counts()
+    vec, qvec, db = f"{tmp}/v.npy", f"{tmp}/q.npy", f"{tmp}/db"
+    model = ["--dimensions", str(D), "--parents", "64", "--seed", "42"]
+    run_tool("sample_vectors", ["--count", str(M_PROBE), "-o", vec] + model, prints=False)
+    # the queries: fresh rows of the same 64 parents (same seed, other count)
+    run_tool("sample_vectors", ["--count", str(B_UPGRADE), "-o", qvec] + model, prints=False)
+    x, q = np.load(vec), np.load(qvec)
+    assert x.shape == (M_PROBE, D) and q.shape == (B_UPGRADE, D)
+    out = run_tool("import_vectors", ["--db", db, "--n-trees", str(N_TREES), vec])
+    grab(rf"inserted {M_PROBE} x {D}-d vectors in {NUM}s\nbuilt in {NUM}s; committed", out)
+    out = run_tool("stats", ["--db", db])
+    assert f"index 0: {M_PROBE} items, {N_TREES} trees, {D} dims, version {CURRENT_VERSION}" in out, out
+    depths = [int(d) for d in re.findall(r"tree \d+: depth=(\d+) ", out)]
+    assert len(depths) == N_TREES, out
+    grab(r"device \(HBM\) footprint: " + NUM + " MiB", out)
+    out = run_tool("check", ["--db", db])
+    assert "index 0: container CRCs OK" in out, out
+    assert f"index 0: structure OK - {M_PROBE} items, {N_TREES} trees, {D} dims" in out, out
+    run_tool("graph", ["--db", db, "-o", f"{tmp}/tree0.dot"], prints=False)
+    rdb = Database(db)
+    euc = Reader.open(rdb.read(), 0, rdb)
+    n_edges, n_leaves, n_items = check_dot(f"{tmp}/tree0.dot", euc._state.forest)
+    assert n_items == M_PROBE, n_items
+    say("cli", f"graph: valid dot for tree 0: {n_edges} edges, {n_leaves} leaves, "
+        f"{n_items} items under the root")
+    for argv in (["--count", "10", "--batch", "256"],
+                 ["--traversal", "xla", "--search-k", "8000", "--batch", "256"]):
+        out = run_tool("search_bench", ["--db", db] + argv)
+        assert grab(rf"1000 queries in {NUM}s -> {NUM} qps \(batch=256\)", out)[1] > 0
+    sweep = ["--m", str(M), "--search-k", "8000", "--exact-point"]
+    for metric in ("euclidean", "binary quantized cosine"):
+        c1 = counts()
+        out = run_tool("recall_sweep", sweep + ["--distance", metric])
+        rc_forest, qps = grab(rf"search_k=\s*8000\s+recall@{K}={NUM}\s+qps=\s*{NUM}", out)
+        rc_exact, _ = grab(rf"exact\s+recall@{K}={NUM}\s+qps=\s*{NUM}", out)
+        moved = {k: n - c1[k] for k, n in counts().items() if n != c1[k]}
+        if metric == "euclidean":
+            assert rc_exact >= 0.99, rc_exact
+            assert moved.get("fused_select_bf16", 0) + moved.get("fused_select_int8", 0) > 0, moved
+        else:
+            assert moved.get("bq_hamming", 0) > 0, moved
+        say("cli", f"recall_sweep {metric}: forest {rc_forest:.4f} at 8000 ({qps:.0f} qps), "
+            f"exact {rc_exact:.4f}, launches {json.dumps(moved)}")
+    out = run_tool("compare_exact", [])
+    grab(rf"forest: {NUM} qps  recall@5={NUM} \(search_k=1000\)", out)
+    grab(rf"exact : {NUM} qps  recall@5=1\.0000", out)
+    out = run_tool("fuzz", ["--seconds", "10"])
+    assert grab(rf"done: {NUM} iterations in {NUM}s", out)[0] > 0 and "no invariant violations" in out
+    # the tree count as built: without --n-trees the reference's formula
+    # asks for ~630 trees at 262,144 x 768
+    out = run_tool("build_only", ["--db", db, "--n-trees", str(N_TREES)])
+    grab(rf"built in {NUM}s \(NOT committed\)", out)
+    out = run_tool("upgrade", ["--db", db])
+    assert out == f"all indexes already at {CURRENT_VERSION}\n", out
+    part_done("a", t0, c0)
+
+    # (b) 1.0.0 → 1.2.0 at 100,000 x 768: bit for bit on both engines
+    t0, c0 = time.perf_counter(), counts()
+    old = f"{tmp}/db_v1_0"
+    with env("ARROY_TPU_NPY_STORE", "1"):
+        wdb = Database(old)
+        w = Writer(wdb, 0, D)
+        with wdb.write() as wtxn:
+            w.add_items(wtxn, np.arange(M_UPGRADE, dtype=np.uint32), x[:M_UPGRADE])
+            w.builder(seed=42).n_trees(N_TREES).build(wtxn)
+    answers = []
+    for stage in ("before", "after"):
+        odb = Database(old)
+        r = Reader.open(odb.read(), 0, odb)
+        r.assert_validity()
+        st = odb.read().state(0)
+        with open(f"{old}/idx_00000/gen_{st.generation:08d}/meta.json") as f:
+            meta = json.load(f)
+        say("upgrade", f"{stage}: version {r.version()}, store {meta.get('store', 'npy')}")
+        if stage == "before":
+            assert str(r.version()) == "1.0.0" and meta.get("store", "npy") == "npy", meta
+        else:
+            assert r.version() == CURRENT_VERSION and meta["store"] == "container", meta
+        got = {}
+        for engine in ("exact", "forest"):
+            s = r.searcher(K, engine=engine)
+            ids, d = s.device_fn(*s.prepare_queries(q))
+            got[engine] = (s.route, ids.cpu().numpy(), d.cpu().numpy())
+        answers.append(got)
+        if stage == "before":
+            out = run_tool("upgrade", ["--db", old])
+            assert out == f"upgraded indexes [0] -> {CURRENT_VERSION}\n", out
+    for engine, (route, ids, d) in answers[0].items():
+        route2, ids2, d2 = answers[1][engine]
+        assert route == route2 and np.array_equal(ids, ids2) and d.tobytes() == d2.tobytes(), engine
+        say("upgrade", f"{engine} ({route}): the batch of {B_UPGRADE} answers bit for bit as "
+            f"before the upgrade")
+    assert answers[0]["exact"][0] == "fused_select" and answers[0]["forest"][0] == "traversal"
+    part_done("b", t0, c0)
+
+    # (c) a custom metric at 262,144 x 768, served through the probe
+    t0, c0 = time.perf_counter(), counts()
+
+    class HalfEuclidean(Euclidean):
+        name = "half-euclidean"
+
+    internals.register_metric(HalfEuclidean)
+    half = f"{tmp}/db_half"
+    hdb = Database(half)
+    w = Writer(hdb, 0, D, metric="half-euclidean")
+    with hdb.write() as wtxn:
+        w.add_items(wtxn, np.arange(M_PROBE, dtype=np.uint32), x)
+        w.builder(seed=42).n_trees(N_TREES).build(wtxn)
+    t_build = time.perf_counter() - t0
+    hdb = Database(half)  # reopened from disk, the name resolves to the class
+    hr = Reader.open(hdb.read(), 0, hdb, metric="half-euclidean")
+    assert hr.metric is HalfEuclidean
+    hr.assert_validity()
+    same = same_forest(hr._state.forest, euc._state.forest)
+    say("custom", f"half-euclidean: built in {t_build:.2f} s; forest equal to the euclidean "
+        f"one node for node: {same}")
+    assert same, "the grow read the metric's name"
+    batches = [q[i:i + B_PROBE] for i in range(0, B_UPGRADE, B_PROBE)]
+    ref_ids = run_batches(euc.searcher(K, engine="exact", precision="f32x1"), batches, "f32x1")[0]
+    sk = SEARCH_K0
+    for step in range(SK_DOUBLINGS + 1):
+        s = hr.searcher(K, search_k=sk)
+        assert s.engine == "forest" and s.route == "probe", (s.engine, s.route)
+        ids, _ = run_batches(s, batches, f"half-euclidean sk={sk}")
+        rc = recall_of(ids, ref_ids)
+        say("custom", f"half-euclidean probe ({s.device_fn.tables.blk_rows.dtype} tables) "
+            f"sk={sk}: recall@{K} vs f32x1 {rc:.4f}")
+        if rc >= TARGET_RECALL or step == SK_DOUBLINGS:
+            break
+        sk *= 2
+    assert rc >= TARGET_RECALL, f"custom metric recall {rc} < {TARGET_RECALL} at sk={sk}"
+    rec["custom"] = {"search_k": sk, "recall": rc}
+    del hr, hdb, s
+    part_done("c", t0, c0)
+
+    # (d) one exact batch inside the profiler: kernel 1 by name in the trace
+    t0, c0 = time.perf_counter(), counts()
+    odb = Database(old)
+    s = Reader.open(odb.read(), 0, odb).searcher(K)
+    dq = s.prepare_queries(q)
+    s.device_fn(*dq)
+    with profiling.trace(f"{tmp}/trace") as prof:
+        s.device_fn(*dq)
+    (name,) = os.listdir(f"{tmp}/trace")
+    with open(f"{tmp}/trace/{name}") as f:
+        text = f.read()
+    hits = [e for e in prof.key_averages() if "fused_select_kernel" in e.key]
+    assert "fused_select_kernel" in text and hits, "the trace does not name kernel 1"
+    say("profile", f"{name}: {len(text) / 1e6:.2f} MB; kernel 1 in it as "
+        f"{hits[0].key[:60]!r}, {hits[0].count} call(s)")
+    part_done("d", t0, c0)
+
+    rec["phase10_s"] = time.perf_counter() - t_phase
+    say("operator", json.dumps(rec))
+    say("time", f"phase 10 took {rec['phase10_s']:.1f} s")
+    return counts()
+
+
 def main() -> int:
     import torch
 
@@ -1425,6 +1723,20 @@ def main() -> int:
         say("launches", f"incremental path: {json.dumps({k: v for c in counters for k, v in c.items()})}")
     del base, queries
     say("time", f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the operator surface (its own path: counts from here)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        p10 = operator_slice(tmp)
+    say("launches", f"operator path: {json.dumps(p10)}")
+    for name in rec:
+        rec[name]["phase10_launches"] = p10[name]
+    for kernel in ("fused_select", "bq_hamming", "gather_score"):
+        assert sum(n for k, n in p10.items() if k.startswith(kernel)) > 0, \
+            f"{kernel} never launched on the operator path"
+    say("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its main path"
         rec[name]["launches"] = n

@@ -757,3 +757,59 @@ def test_cuda_budget_build_keeps_the_invariants(metric):
     f = r._state.forest
     assert r.n_trees() == 5
     assert max(len(f.leaves[int(n)]) for n in np.nonzero(f.kind == KIND_LEAF)[0]) <= 32
+
+
+def test_cuda_profiling_trace_names_kernel_1(tmp_path):
+    """`utils.profiling.trace` around one exact batch records kernel 1's
+    CUDA function by name, in the profiler's tables and in the trace file."""
+    import os
+
+    from arroy_tpu_torch.utils import profiling
+
+    dev = require_cuda()
+    x = np.random.default_rng(5).standard_normal((8192, 128)).astype(np.float32)
+    db = Database(None, device=dev)
+    w = Writer(db, 0, 128)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(8192), x)
+        w.builder(seed=1).n_trees(2).build(wtxn)
+    s = Reader.open(db.read(), 0, db).searcher(10)
+    assert s.route == "fused_select"
+    dq = s.prepare_queries(x[:256])
+    s.device_fn(*dq)
+    n0 = fused_select.launches["fused_select_bf16"]
+    with profiling.trace(str(tmp_path)) as prof:
+        ids, _ = s.device_fn(*dq)
+    assert fused_select.launches["fused_select_bf16"] == n0 + 1
+    assert np.array_equal(ids[:, 0].cpu().numpy(), np.arange(256))
+    assert any("fused_select_kernel" in e.key for e in prof.key_averages())
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        assert "fused_select_kernel" in f.read()
+
+
+def test_cuda_upgraded_index_search_matches_cpu(tmp_path):
+    """The committed 1.1 asset upgraded by the port: the exact engine and
+    the traversal on the card answer as on the CPU."""
+    import os
+    import shutil
+
+    from arroy_tpu_torch.upgrade import upgrade_all
+
+    dev = require_cuda()
+    path = str(tmp_path / "db")
+    shutil.copytree(os.path.join(os.path.dirname(__file__), "assets", "v1_1_zero_normal"), path)
+    assert upgrade_all(Database(path, device=dev)) == [0, 1]
+    for idx, metric in ((0, "euclidean"), (1, "binary quantized cosine")):
+        out = {}
+        for d in (dev, "cpu"):
+            db = Database(path, device=d)
+            r = Reader.open(db.read(), idx, db, metric=metric)
+            assert str(r.version()) == "1.2.0"
+            q = np.stack([r.item_vector(i) for i in r.item_ids()])[:32]
+            for engine in ("exact", "forest"):
+                res = r.searcher(10, engine=engine)(q)
+                out[d, engine] = (np.array([[i for i, _ in row] for row in res]),
+                                  np.array([[v for _, v in row] for row in res]))
+        for engine in ("exact", "forest"):
+            tie_aware_equal(*out[dev, engine], *out["cpu", engine], rtol=1e-5, atol=1e-6)
