@@ -69,7 +69,7 @@ def main(argv=None):
     ap.add_argument(
         "--multipop", default="auto",
         help="forest pops per traversal iteration (1 = strict best-first "
-        "= auto; above 1 is not ported and raises)",
+        "= auto)",
     )
     ap.add_argument(
         "--traversal", default="auto", choices=("auto", "xla", "probe"),

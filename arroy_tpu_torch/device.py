@@ -43,6 +43,16 @@ def _to_device(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def leaf_pops_bound(leaf_cum, search_k: int) -> int:
+    """Worst-case non-empty leaf pops before ``search_k`` candidate slots
+    are filled, from the ascending cumulative sum of a forest's leaf sizes:
+    take the smallest leaves first (``search_k`` itself without one)."""
+    if leaf_cum is None or len(leaf_cum) == 0:
+        return max(search_k, 1)
+    m = int(np.searchsorted(leaf_cum, search_k, side="left")) + 1
+    return min(m, len(leaf_cum))
+
+
 @dataclass(frozen=True)
 class DeviceIndex:
     metric: type[Metric]
@@ -85,11 +95,8 @@ class DeviceIndex:
 
     def max_leaf_pops(self, search_k: int) -> int:
         """Worst-case non-empty leaf pops before `search_k` candidate
-        slots are filled: take the smallest leaves first."""
-        if self.leaf_cum_np is None or len(self.leaf_cum_np) == 0:
-            return max(search_k, 1)
-        m = int(np.searchsorted(self.leaf_cum_np, search_k, side="left")) + 1
-        return min(m, len(self.leaf_cum_np))
+        slots are filled (`leaf_pops_bound`)."""
+        return leaf_pops_bound(self.leaf_cum_np, search_k)
 
     def nbytes(self) -> int:
         """Device bytes of this index's tensors (the budget a serving

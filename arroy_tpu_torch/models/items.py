@@ -13,6 +13,7 @@ up to u32::MAX) — memory scales with the number of items, not the max id
 from __future__ import annotations
 
 import itertools
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -115,6 +116,8 @@ class ItemStore:
         `DeviceIndex` serves from them), and they must not change.  BQ
         rows go to the device as int32 bit patterns.
         `mirror_rows_uploaded` counts the rows this call sent.
+        ``ARROY_DEVICE_MIRROR=0`` disables reuse: every call uploads the
+        whole matrix, as the JAX package's switch does.
         """
         import torch
 
@@ -124,7 +127,11 @@ class ItemStore:
             # tensors report "cuda:N": compare the mirror's device with that
             device = torch.device("cuda", torch.cuda.current_device())
         cap = self._rows.shape[0]
-        ent = _DEVICE_MIRROR.get(self._lineage)
+        ent = (
+            _DEVICE_MIRROR.get(self._lineage)
+            if os.environ.get("ARROY_DEVICE_MIRROR", "1") != "0"
+            else None
+        )
         patchable = (
             ent is not None
             and ent[0] == self._sync_epoch

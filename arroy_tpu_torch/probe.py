@@ -383,17 +383,75 @@ def gather_chunk(b: int, blk_rows: torch.Tensor) -> int:
     return max(1, int(PROBE_GATHER_BYTES) // max(b * blk_rows.shape[1] * per_slot, 1))
 
 
+#: when set, `rescore_cut` returns the JAX package's cut (the tests hold
+#: the port to the JAX package's results with it)
+JAX_CUT = False
+#: past its floor, an exact in-block score's re-score cut is search_k over
+#: this share (`rescore_cut`; `scripts/torch_probe_cut.py` measures it)
+CUT_SHARE = 8
+
+
+def block_scale(metric) -> int:
+    """Stage 1's factor on the query-centroid dot (2 where the score is
+    ``2q·c - ‖c‖²``, the distance's ranking form)."""
+    return 2 if metric.name in (
+        "euclidean", "manhattan", "binary quantized euclidean", "binary quantized manhattan"
+    ) else 1
+
+
+def rescore_cut(k: int, search_k: int, pool: int, sign_bits: bool, custom: bool) -> int:
+    """How many of the in-block winners (of ``pool`` probed slots) reach
+    the exact f32 re-score: the probe's one cut rule, used by `make_probe_fn`
+    and the sharded probe (`parallel.forest`).
+
+    A generous floor, ``max(32·k, 512)``, washes out bf16 selection noise
+    and cross-tree duplicates.  Past it the cut tracks
+    ``search_k // CUT_SHARE``: a fixed cut stops recall from rising with
+    search_k, and then lowers it, as the in-block top set converges while
+    the pool grows (on an H100 the euclidean probe at 262,144 x 768 fell
+    from recall@10 0.990 at search_k 8000 to 0.925 at 32000 with the cut
+    at 512; PERF.md §6).  The reference re-scores every candidate
+    (src/reader.rs:378-401).  An estimate's score (``sign_bits``: sign-bit
+    blocks of an f32 metric; ``custom``: a registered metric, scored by
+    the dot product) takes the reference's 3x BQ oversampling on the floor
+    (src/distance/binary_quantized_cosine.rs:36) and tracks half of
+    search_k, the JAX package's rule for its sign-bit estimate.  With
+    `JAX_CUT` set, only sign-bit blocks are an estimate and only their
+    floor tracks search_k, as in the JAX package."""
+    estimate = sign_bits or (custom and not JAX_CUT)
+    over = 3 if estimate else 1
+    floor = max(32 * k * over, 512 * over)
+    if estimate:
+        floor = max(floor, int(search_k) // 2)
+    elif not JAX_CUT:
+        floor = max(floor, int(search_k) // CUT_SHARE)
+    return min(_next_pow2(floor), pool)
+
+
+def blocks_per_tree(T: int, P: int, fill: float, search_k: int, nb_max: int,
+                    selectivity: float = 1.0) -> int:
+    """Blocks probed per tree, ``L``: search_k counts real candidate slots,
+    so the T·P slots of one block per tree are scaled by the leaf-padding
+    ``fill``, and by ``selectivity`` when filtered, since only matching
+    slots count toward the budget (the single and the sharded probe)."""
+    eff = max(int(T * P * fill * selectivity), 1)
+    return max(1, min(-(-int(search_k) // eff), nb_max))
+
+
 def _probe_core(
     metric, dims, k, k2, L, nb_max, scale,
     cent, caux, valid, blk_rows, blk_aux, blk_slots, blk_scale,
     rows, norms, extras, slot_to_id,
     qv, qn, qe,
     fmask=None,
+    normalize=True,
 ):
     """The probe search of one query batch → (ids [B, k] int64, dists [B, k]).
 
     ``fmask`` ([cap] bool, or None) masks non-candidate slots out of the
-    in-block scores (the roaring-∩ role, reference: src/reader.rs:354-360)."""
+    in-block scores (the roaring-∩ role, reference: src/reader.rs:354-360).
+    With ``normalize=False`` the distances stay raw, +inf where nothing
+    was found (what the sharded probe merges)."""
     name = metric.name
     b = qv.shape[0]
     T = cent.shape[0] // nb_max
@@ -522,6 +580,8 @@ def _probe_core(
         out_d, top_i = torch.topk(torch.cat(ds, dim=1), k, dim=1, largest=False)
         sel_slots = torch.gather(torch.cat(sl, dim=1), 1, top_i)
     ids = slot_to_id[torch.clamp(sel_slots, min=0)]
+    if not normalize:
+        return ids, out_d
     out_d = torch.where(
         out_d < _INF, metric.normalized_distance(out_d, dims), float("nan")
     )
@@ -590,9 +650,6 @@ def make_probe_fn(
     T = max(1, min(T, len(idx.roots)))
     P = DEFAULT_BLOCK if block == "auto" else int(block)
     tabs = get_tables(idx, state, T, P, dtype)
-    # search_k counts REAL candidate slots: scale the probed-block count
-    # by the leaf-padding fill, and by 1/selectivity when filtered, since
-    # only matching slots count toward the budget
     fmask = None
     sel = 1.0
     if filter_slots is not None:
@@ -600,32 +657,11 @@ def make_probe_fn(
         mask = np.zeros(idx.cap, bool)
         mask[np.asarray(filter_slots, np.int64)] = True
         fmask = torch.from_numpy(mask).to(idx.device)
-    eff = max(int(T * P * tabs.fill * sel), 1)
-    L = max(1, min(-(-int(search_k) // eff), tabs.nb_max))
+    L = blocks_per_tree(T, P, tabs.fill, search_k, tabs.nb_max, sel)
     k = max(1, int(count))
-    # generous exact-rescore cut: it washes out bf16 selection noise and
-    # cross-tree duplicates occupying k2 slots.  Sign-bit blocks for f32
-    # metrics score with real error at high d, so their cut tracks HALF
-    # the candidate budget, with the reference's 3x BQ oversampling as
-    # the floor (reference: src/distance/binary_quantized_cosine.rs:36).
-    # Binary METRICS rank exactly in-block and take the plain cut.  A
-    # custom metric (`register_metric`) is scored in-block by the generic
-    # branch's dot product, a proxy of its own distance, so its cut is an
-    # estimate's too.  (The JAX package cuts it at 512, where recall
-    # stalls as search_k grows: on an H100, a registered euclidean at
-    # 262,144 x 768 reached recall@10 0.93 / 0.94 at search_k 8000 /
-    # 16000, and 0.968 at 8000 with this cut; PERF.md §6.)
-    estimate = (dtype == "bq" and not idx.metric.binary) or idx.metric not in ALL_METRICS
-    over = 3 if estimate else 1
-    floor = max(32 * k * over, 512 * over)
-    if estimate:
-        floor = max(floor, int(search_k) // 2)
-    k2 = min(_next_pow2(floor), T * L * P)
-    scale = (
-        2
-        if (not idx.metric.binary and idx.metric.name in ("euclidean", "manhattan"))
-        or idx.metric.name
-        in ("binary quantized euclidean", "binary quantized manhattan")
-        else 1
+    k2 = rescore_cut(
+        k, search_k, T * L * P,
+        sign_bits=dtype == "bq" and not idx.metric.binary,
+        custom=idx.metric not in ALL_METRICS,
     )
-    return ProbeFn(idx, tabs, k, int(k2), int(L), int(scale), fmask)
+    return ProbeFn(idx, tabs, k, int(k2), int(L), block_scale(idx.metric), fmask)

@@ -349,7 +349,9 @@ class Reader:
         src/reader.rs:330-335).  ``multipop`` is the best-first
         traversal's pops per step: 1 (what ``"auto"`` means unless
         ``ARROY_MULTIPOP`` says otherwise) is the reference's strict
-        order; the multi-pop variant is not ported and raises.  A custom
+        order; P > 1 pops the best entry of each of P queue segments a
+        step (`search._traverse_multipop`), on the two-tier traversal's
+        small tier only, and a filtered search runs at 1.  A custom
         metric (`metrics.register_metric`) has no exact engine, so
         ``engine="auto"`` serves it through the forest."""
         qb = QueryBuilder(self, count)

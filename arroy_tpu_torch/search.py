@@ -4,8 +4,8 @@ Counterpart of `arroy_tpu/search.py`: `make_exact_fn`, `exact_batch`
 and their stage functions, and the forest engine `make_search_fn` with
 `search_batch` (the empty index, the filter-pool shortcut, the leaf-probe
 engine of `probe.py`, and the best-first traversal with its two-tier
-budget, leaf-log expansion and three re-score modes).  The multi-pop
-traversal variant is not ported.
+budget, its multi-pop variant, leaf-log expansion and three re-score
+modes).
 
 The best-first traversal pops a max-queue seeded with every tree root at
 +inf, descends split planes pushing children at ``min(parent, ∓margin)``
@@ -159,11 +159,15 @@ def _rescore(metric, qv, qn, qe, cand, rows, norms, extras, valid):
     return torch.where(valid, d, _INF)
 
 
-def _finish(metric, dims, k, d, slot_to_id, cand=None):
+def _finish(metric, dims, k, d, slot_to_id, cand=None, normalize=True):
     """Top-k smallest of [B, n] distances → (ids [B, k], normalized d).
-    Column j is slot ``cand[:, j]``, or slot j when `cand` is None."""
+    Column j is slot ``cand[:, j]``, or slot j when `cand` is None.  With
+    ``normalize=False`` the distances stay raw, +inf where dead (what a
+    sharded index merges)."""
     out_d, top = torch.topk(d, k, dim=1, largest=False)
     ids = slot_to_id[top if cand is None else torch.gather(cand, 1, top)]
+    if not normalize:
+        return ids, out_d
     out_d = torch.where(
         out_d < _INF, metric.normalized_distance(out_d, dims), float("nan")
     )
@@ -202,7 +206,9 @@ def _candidate_mask(cand, m: int):
 # ---------------------------------------------------------------------------
 
 
-def _exact_f32_direct(metric, dims, k, x2, rows, norms, extras, slot_to_id, live, qv, qn, qe):
+def _exact_f32_direct(
+    metric, dims, k, x2, rows, norms, extras, slot_to_id, live, qv, qn, qe, normalize=True
+):
     """f32 matmul distances + top-4k cut + exact re-score (`_exact_f32_direct_impl`)."""
     aux = x2 if metric.name == "euclidean" else norms
     d = _matmul_distance(metric, _f32_matmul(qv, rows), aux, qv, qn)
@@ -210,7 +216,7 @@ def _exact_f32_direct(metric, dims, k, x2, rows, norms, extras, slot_to_id, live
     k2 = min(max(4 * k, 32), rows.shape[0])
     d2, cand = torch.topk(d, k2, dim=1, largest=False)
     dr = _rescore(metric, qv, qn, qe, cand, rows, norms, extras, d2 < _INF)
-    return _finish(metric, dims, k, dr, slot_to_id, cand)
+    return _finish(metric, dims, k, dr, slot_to_id, cand, normalize)
 
 
 def _score(metric, dots, x2, norms):
@@ -321,15 +327,15 @@ def _bq_distance(metric, h, norms, qn, d_pad: int):
     return torch.where(ok, (1.0 - cos) / 2.0, 0.0)
 
 
-def _exact_bq_matrix(metric, dims, k, rows, norms, slot_to_id, live, qv, qn):
+def _exact_bq_matrix(metric, dims, k, rows, norms, slot_to_id, live, qv, qn, normalize=True):
     """Popcount distance matrix (kernel 2) + exact top-k (`_exact_bq_matrix`)."""
     h = bq_hamming_matrix(qv.contiguous(), rows).to(torch.float32)
     d = _bq_distance(metric, h, norms, qn, rows.shape[1] * WORD_BITS)
     d = torch.where(live[None, :], d, _INF)
-    return _finish(metric, dims, k, d, slot_to_id)
+    return _finish(metric, dims, k, d, slot_to_id, normalize=normalize)
 
 
-def _exact_bq_scan(metric, dims, k, chunk, rows, norms, slot_to_id, live, qv, qn):
+def _exact_bq_scan(metric, dims, k, chunk, rows, norms, slot_to_id, live, qv, qn, normalize=True):
     """Streaming BQ exact search (`_exact_bq_scan_impl`): memory is bounded
     by [B, chunk] at any corpus size.
 
@@ -351,14 +357,19 @@ def _exact_bq_scan(metric, dims, k, chunk, rows, norms, slot_to_id, live, qv, qn
 
     best, cand = _chunk_topk(dist_of, rows.shape[0], chunk, kk, largest=False)
     scan_calls["bq_scan"] += 1
-    ids, out_d = _finish(metric, dims, kk, best, slot_to_id, cand)
+    ids, out_d = _finish(metric, dims, kk, best, slot_to_id, cand, normalize)
     if kk < k:
         ids = torch.nn.functional.pad(ids, (0, k - kk))
-        out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("nan"))
+        out_d = torch.nn.functional.pad(
+            out_d, (0, k - kk), value=float("nan") if normalize else _INF
+        )
     return ids, out_d
 
 
-def _exact_scan(metric, dims, k, chunk, rows_mm, x2, rows, norms, extras, slot_to_id, live, qv, qn, qe):
+def _exact_scan(
+    metric, dims, k, chunk, rows_mm, x2, rows, norms, extras, slot_to_id, live, qv, qn, qe,
+    normalize=True,
+):
     """Streaming exact search (`_exact_scan_impl`): memory is bounded by
     [B, chunk] at any corpus size.
 
@@ -376,10 +387,10 @@ def _exact_scan(metric, dims, k, chunk, rows_mm, x2, rows, norms, extras, slot_t
     best, cand = _chunk_topk(score_of, rows_mm.shape[0], chunk, k2, largest=True)
     d = _rescore(metric, qv, qn, qe, cand, rows, norms, extras, live[cand] & (best > -_INF))
     scan_calls["exact_scan"] += 1
-    return _finish(metric, dims, k, d, slot_to_id, cand)
+    return _finish(metric, dims, k, d, slot_to_id, cand, normalize)
 
 
-def _exact_batch(metric, dims, k, rows, norms, extras, slot_to_id, live, qv, qn, qe):
+def _exact_batch(metric, dims, k, rows, norms, extras, slot_to_id, live, qv, qn, qe, normalize=True):
     """Per-pair reference formulas against every row (`_exact_batch`),
     chunked over queries to bound the [Bc, M, sd] temporary; each chunk
     keeps only its top-k, so no [B, M] matrix is ever whole."""
@@ -390,7 +401,9 @@ def _exact_batch(metric, dims, k, rows, norms, extras, slot_to_id, live, qv, qn,
             qv[s : s + step, None, :], qn[s : s + step, None], qe[s : s + step, None],
             rows[None], norms[None], extras[None],
         )
-        parts.append(_finish(metric, dims, k, torch.where(live[None, :], d, _INF), slot_to_id))
+        parts.append(_finish(
+            metric, dims, k, torch.where(live[None, :], d, _INF), slot_to_id, normalize=normalize
+        ))
     return torch.cat([i for i, _ in parts]), torch.cat([d for _, d in parts])
 
 
@@ -594,13 +607,10 @@ _SMALL_POPS_PAD = 256
 #: query still active" flag
 POP_BLOCK = 16
 
-_MULTIPOP_TODO = (
-    "multipop={} asks for the multi-pop traversal, which is not ported "
-    "(ROADMAP queue 1 item 1: multipop stays unported); use multipop=1"
-)
 
-
-def _rescore_batch(metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, qn, qe):
+def _rescore_batch(
+    metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, qn, qe, normalize=True
+):
     """Exact re-score of [B, cap] candidate slots (-1 pad) → top-k
     (`_rescore_impl`): valid candidates sorted by ascending id and
     deduplicated (the reference's sort_unstable + dedup,
@@ -628,7 +638,7 @@ def _rescore_batch(metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, q
         ],
         dim=1,
     )
-    return _finish(metric, dims, k, torch.where(invalid, _INF, d), slot_to_id, slots_s)
+    return _finish(metric, dims, k, torch.where(invalid, _INF, d), slot_to_id, slots_s, normalize)
 
 
 def _rescore_matmul(metric, dims, k, rows, norms, extras, slot_to_id, cand, qv, qn, qe):
@@ -726,37 +736,58 @@ def traversal_mode(idx: DeviceIndex, want: str = "auto") -> str:
     return "xla"
 
 
-def resolve_multipop(want="auto") -> int:
-    """Pops per traversal step: ``"auto"`` reads ``ARROY_MULTIPOP`` and
-    otherwise means 1, the reference's strict best-first order."""
+def resolve_multipop(n_items: int, want="auto") -> int:
+    """Pops per traversal step (the JAX package's signature; ``n_items``
+    does not change the answer): ``"auto"`` reads ``ARROY_MULTIPOP`` and
+    otherwise means 1, the reference's strict best-first order.  The JAX
+    package keeps "auto" at 1 by a TPU measurement; the H100's is in
+    PERF.md (chip_smoke phase 7), and a change of it is a benchmark's."""
     if want is None or want == "auto":
         env = os.environ.get("ARROY_MULTIPOP")
         return max(int(env), 1) if env is not None else 1
     return max(int(want), 1)
 
 
-def pops_budget(idx: DeviceIndex, search_k: int, exhaustive: bool, selectivity: float = 1.0) -> int:
+def pop_bound(n_nodes: int, n_trees: int, n_splits: int, n_dead_pops: int, leaf_pops,
+              search_k: int, full: bool, selectivity: float = 1.0) -> int:
     """Static pop bound for the traversal loop (the JAX package's, as it is).
 
     Unfiltered, every non-empty leaf pop yields >= 1 candidate, so the
-    structure bounds the pops: every split once, the smallest leaves
-    first, every empty or FREE row once.  With a candidate filter only a
+    structure bounds the pops: every split once, the ``leaf_pops``
+    smallest leaves first, every empty or FREE row once (no tight bound
+    where ``leaf_pops`` is None).  With a candidate filter only a
     ``selectivity`` fraction of each window counts toward search_k, so
-    the budget scales by 1/selectivity, bounded by the whole forest."""
-    t = max(len(idx.roots), 1)
-    if exhaustive or search_k >= idx.n_items:
-        return idx.n_nodes + t
+    the budget scales by 1/selectivity, bounded by the whole forest.  The
+    sharded forest passes its maxima over shards."""
+    t = max(n_trees, 1)
+    if full:
+        return n_nodes + t
     sel = min(max(float(selectivity), 1e-9), 1.0)
-    budget = min(idx.n_nodes + t, 2 * t + int(np.ceil(2.0 * search_k / sel)) + 64)
-    if sel >= 1.0 and idx.leaf_cum_np is not None:
-        tight = idx.n_splits + idx.max_leaf_pops(search_k) + idx.n_dead_pops + t + 8
-        budget = min(budget, tight)
+    budget = min(n_nodes + t, 2 * t + int(np.ceil(2.0 * search_k / sel)) + 64)
+    if sel >= 1.0 and leaf_pops is not None:
+        budget = min(budget, n_splits + leaf_pops + n_dead_pops + t + 8)
     return budget
+
+
+def traversal_caps(n_trees: int, pmax: int, n_splits: int, sk: int, leaf_pops: int, P: int = 1):
+    """(q_cap, l_cap): tight widths from the index structure (capacity
+    only, results unchanged): a push per split pop; non-empty leaf pops
+    bounded by the smallest-leaves-first worst case; P-wide pops overshoot
+    both by up to P - 1 before the loop stops."""
+    t = max(n_trees, 1)
+    return t + min(pmax, n_splits) + 1 + P - 1, min(sk, pmax, leaf_pops) + 1 + P - 1
+
+
+def pops_budget(idx: DeviceIndex, search_k: int, exhaustive: bool, selectivity: float = 1.0) -> int:
+    """`pop_bound` of one device index."""
+    leaf_pops = None if idx.leaf_cum_np is None else idx.max_leaf_pops(search_k)
+    return pop_bound(idx.n_nodes, len(idx.roots), idx.n_splits, idx.n_dead_pops, leaf_pops,
+                     search_k, exhaustive or search_k >= idx.n_items, selectivity)
 
 
 def _traverse_batch(
     margins, node_table, leaf_items, roots, search_k, search_k_dyn, pmax, w,
-    q_cap=None, l_cap=None, filter_words=None,
+    q_cap=None, l_cap=None, filter_words=None, stats=None,
 ):
     """The best-first pop loop of a query batch (`_traverse_impl` with
     ``expand=False``: its `one` body, or `one_filtered` when
@@ -774,7 +805,8 @@ def _traverse_batch(
     ``q_cap`` must hold every push, ``t + min(pmax, n_splits)`` lanes or
     more (a split node has one parent, so it is pushed at most once), and
     ``search_k_dyn <= search_k``.  Finished queries are frozen by the
-    per-query ``active`` mask, so pops past their end change nothing."""
+    per-query ``active`` mask, so pops past their end change nothing.
+    ``stats`` (a dict, if given) gets the loop's step count as "steps"."""
     b, s_rows = margins.shape
     dev = margins.device
     t = int(roots.shape[0])
@@ -872,11 +904,112 @@ def _traverse_batch(
         done += steps
         if not bool(running().any()):  # the one host sync of a block
             break
+    if stats is not None:
+        stats["steps"] = done
     pops, n_cand = pops.view(-1), n_cand.view(-1)
     if filtered:
         return cand[:, :cap], pops, n_cand
     leaf_log[:, l_cap - 1] = n_leaf.view(-1)
     return leaf_log, pops, n_cand
+
+
+def _traverse_multipop(margins, node_table, roots, search_k_dyn, pmax, P, q_cap, l_cap, stats=None):
+    """The multi-pop pop loop of a query batch (`_traverse_multipop_impl`
+    with ``expand=False``): each step pops the best entry of EVERY one of
+    P queue segments, a documented deviation from the reference's strict
+    best-first order (reference: src/reader.rs:345-372; PARITY.md
+    deviation 11).  The global best is always among the P pops; an entry
+    skipped this step stays queued.
+
+    The queue is a [P, L] grid (``q_cap`` rounded up to a multiple of P,
+    at least 2·P).  Logical slot k lives at physical lane
+    ``(k mod P)·L + k div P``, so the right children pushed at contiguous
+    logical slots from ``n_pushed`` spread over the segments.  Leaf
+    windows are logged in pop order through a [P] rank table (the r-th
+    logged pop of a step goes to slot ``n_leaf + r``).  Per-query state
+    is [B, 1] or [B, P], each lane read with `gather` and written with
+    `scatter_` (column ``q_cap`` of the queue and ``l_cap - 1`` of the log
+    take the masked-off writes); finished queries are frozen by the
+    ``active`` mask, and the host reads "any query active" once every
+    `POP_BLOCK` steps.  Returns ``(leaf_log [B, l_cap], pops, n_cand)`` as
+    `_traverse_batch` does unfiltered (and fills ``stats`` as it does)."""
+    b, s_rows = margins.shape
+    dev = margins.device
+    t = int(roots.shape[0])
+    q_cap = max(q_cap, 2 * P)
+    q_cap = -(-q_cap // P) * P
+    L = q_cap // P
+    lane = torch.arange(q_cap, device=dev)
+    k_of_j = (lane % L) * P + lane // L
+    pq_dist = torch.full((b, q_cap + 1), -_INF, device=dev)
+    pq_node = torch.zeros((b, q_cap + 1), dtype=torch.int64, device=dev)
+    pq_dist[:, :q_cap] = torch.where(k_of_j < t, _INF, -_INF)
+    pq_node[:, :q_cap] = torch.where(k_of_j < t, roots[k_of_j.clamp(max=t - 1)], 0)
+    dist_v, node_v = pq_dist[:, :q_cap], pq_node[:, :q_cap]
+    r = torch.arange(P, device=dev)[None, :]  # a step's ranks, and its segments
+    seg_base = r * L
+    targets = (r + 1).expand(b, P).contiguous()
+    leaf_log = torch.zeros((b, l_cap), dtype=torch.int64, device=dev)
+    n_leaf = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    n_pushed = torch.full((b, 1), t, dtype=torch.int64, device=dev)
+    n_cand = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    pops = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+
+    def running():
+        return (n_cand < search_k_dyn) & (pops < pmax)
+
+    done = 0
+    while done < pmax:
+        steps = min(POP_BLOCK, pmax - done)
+        for _ in range(steps):
+            active = running()
+            # segment-max pop: the first maximal lane of each segment
+            grid = dist_v.view(b, P, L)
+            vals = grid.amax(dim=2)
+            idxs = seg_base + grid.argmax(dim=2)  # [B, P] physical lanes
+            alive = vals > -_INF
+            nids = torch.gather(node_v, 1, idxs)
+            # kind, left, right, ptr, leaf_off, leaf_cnt
+            rows = node_table.index_select(0, nids.view(-1)).view(b, P, -1).long()
+            knd, p = rows[..., 0], rows[..., 3]
+            go = active & alive
+            is_leaf = go & (knd == KIND_LEAF)
+            is_split = go & (knd != KIND_LEAF) & (knd != KIND_FREE)
+            # leaf pops: the non-empty windows, logged at contiguous slots
+            cnt = torch.where(is_leaf, rows[..., 5], 0)
+            csum = (cnt > 0).cumsum(dim=1)
+            n_log = csum[:, -1:]
+            lane_of = torch.searchsorted(csum, targets).clamp(max=P - 1)
+            at = n_leaf + r
+            log_ok = (r < n_log) & (at < l_cap - 1)
+            leaf_log.scatter_(1, torch.where(log_ok, at, l_cap - 1), torch.gather(p, 1, lane_of))
+            n_leaf = torch.minimum(n_leaf + n_log, torch.full_like(n_leaf, l_cap - 1))
+            n_cand += cnt.sum(dim=1, keepdim=True)
+            # split pops: the left child takes the popped lane, every other
+            # pop drains it to -inf (keeping its node)
+            margin = torch.gather(margins, 1, p.clamp(0, s_rows - 1))
+            margin = torch.where(knd == KIND_SPLIT_NONE, 0.0, margin)
+            tgt = torch.where(active, idxs, q_cap)
+            pq_dist.scatter_(1, tgt, torch.where(is_split, torch.minimum(vals, -margin), -_INF))
+            pq_node.scatter_(1, tgt, torch.where(is_split, rows[..., 1], nids))
+            # right children at logical slots n_pushed, n_pushed + 1, ...
+            csum = is_split.cumsum(dim=1)
+            ns = csum[:, -1:]
+            lane_of = torch.searchsorted(csum, targets).clamp(max=P - 1)
+            slot = n_pushed + r
+            tgt = torch.where((r < ns) & (slot < q_cap), (slot % P) * L + slot // P, q_cap)
+            pq_dist.scatter_(1, tgt, torch.gather(torch.minimum(vals, margin), 1, lane_of))
+            pq_node.scatter_(1, tgt, torch.gather(rows[..., 2], 1, lane_of))
+            n_pushed += ns
+            n_alive = alive.sum(dim=1, keepdim=True)
+            pops = torch.where(active, torch.where(n_alive > 0, pops + n_alive, pmax), pops)
+        done += steps
+        if not bool(running().any()):  # the one host sync of a block
+            break
+    if stats is not None:
+        stats["steps"] = done
+    leaf_log[:, l_cap - 1] = n_leaf.view(-1)
+    return leaf_log, pops.view(-1), n_cand.view(-1)
 
 
 def _expand_log(log, leaf_off, leaf_cnt, leaf_items, cap):
@@ -918,11 +1051,17 @@ class TraversalFn:
     one), `expand` and `rescore`.
 
     Geometry (host ints): ``pmax``, ``pmax_small``, ``two_tier``,
-    ``q_cap_small``, ``q_cap``, ``l_cap``.  ``fallbacks`` counts batches
-    that the small tier truncated and the full budget re-ran;
-    ``last_pops`` [B] and ``last_small_ok`` describe the last batch."""
+    ``q_cap_small``, ``q_cap``, ``l_cap`` and ``P``, the pops a step of the
+    small tier takes (`_traverse_multipop` when > 1; the full budget and a
+    single tier pop one at a time, and a filter forces 1, as in the JAX
+    package).  ``fallbacks`` counts batches that the small tier truncated
+    and the full budget re-ran; ``last_pops`` [B], ``last_small_ok`` and
+    ``last_steps`` (pop-loop steps, both tiers) describe the last batch."""
 
-    def __init__(self, idx: DeviceIndex, count: int, sk_exact: int, filter_slots, rescore: str):
+    def __init__(
+        self, idx: DeviceIndex, count: int, sk_exact: int, filter_slots, rescore: str,
+        multipop="auto",
+    ):
         self.idx = idx
         self.rescore_want = rescore
         has_filter = filter_slots is not None
@@ -941,11 +1080,9 @@ class TraversalFn:
         self.k = max(min(_next_pow2(count), self.cap), 1)
         self.pmax = pops_budget(idx, sk_exact, False, selectivity)
         t = max(len(idx.roots), 1)
-        # tight widths from the index structure (capacity only, results
-        # unchanged): a push per split pop; non-empty leaf pops bounded by
-        # the smallest-leaves-first worst case
-        self.q_cap = t + min(self.pmax, idx.n_splits) + 1
-        self.l_cap = min(self.sk, self.pmax, idx.max_leaf_pops(self.sk)) + 1
+        P = 1 if has_filter else resolve_multipop(idx.n_items, multipop)
+        self.q_cap, self.l_cap = traversal_caps(t, self.pmax, idx.n_splits, self.sk,
+                                                idx.max_leaf_pops(self.sk), P)
         # two tiers: the per-pop cost grows with the queue width, and the
         # always-safe q_cap is 10-100x what a real query needs, so an
         # optimistic pass runs at an expected budget (mean-sized leaves,
@@ -957,29 +1094,43 @@ class TraversalFn:
         exp_leaf_pops = int(np.ceil(sk_exact / max(mean_leaf, 1.0)))
         self.pmax_small = min(self.pmax, _SMALL_POPS_MULT * exp_leaf_pops + _SMALL_POPS_PAD)
         self.two_tier = (not has_filter) and self.pmax_small < self.pmax // 2
-        self.q_cap_small = t + min(self.pmax_small, idx.n_splits) + 1
+        # a single tier runs at the full queue width, where the JAX
+        # package's [P, L] updates faulted its device: one pop a step there
+        self.P = P if self.two_tier else 1
+        self.q_cap_small = t + min(self.pmax_small, idx.n_splits) + 1 + self.P - 1
         self.roots = torch.tensor(idx.roots, dtype=torch.int64, device=idx.device)
         self.fallbacks = 0
         self.last_pops = None
         self.last_small_ok = None
+        self.last_steps = 0
         self._scan_aux = None
 
     def margins(self, qv, qf):
         idx = self.idx
         return idx.metric.margin_matrix(idx.normals, idx.aux, qv, qf)
 
-    def traverse(self, margins, pmax: int, q_cap: int):
-        """One pop loop at the given budget (`_traverse_batch`)."""
+    def traverse(self, margins, pmax: int, q_cap: int, P: int = 1):
+        """One pop loop at the given budget: `_traverse_batch`, or
+        `_traverse_multipop` at ``P`` > 1."""
         idx = self.idx
-        return _traverse_batch(
-            margins, idx.node_table, idx.leaf_items, self.roots, self.sk, self.sk_exact,
-            pmax, idx.max_leaf, q_cap=q_cap, l_cap=self.l_cap, filter_words=self.filter_words,
-        )
+        stats = {}
+        if P > 1:
+            out = _traverse_multipop(margins, idx.node_table, self.roots, self.sk_exact,
+                                     pmax, P, q_cap, self.l_cap, stats)
+        else:
+            out = _traverse_batch(
+                margins, idx.node_table, idx.leaf_items, self.roots, self.sk, self.sk_exact,
+                pmax, idx.max_leaf, q_cap=q_cap, l_cap=self.l_cap,
+                filter_words=self.filter_words, stats=stats,
+            )
+        self.last_steps += stats["steps"]
+        return out
 
     def walk(self, margins):
         """The pop loop of a batch: leaf logs, or filtered candidates."""
+        self.last_steps = 0
         if self.two_tier:
-            out, pops, n_cand = self.traverse(margins, self.pmax_small, self.q_cap_small)
+            out, pops, n_cand = self.traverse(margins, self.pmax_small, self.q_cap_small, self.P)
             # one host read a batch (the JAX package decides on the device
             # with lax.cond)
             self.last_small_ok = not bool(((pops >= self.pmax_small) & (n_cand < self.sk_exact)).any())
@@ -1055,8 +1206,8 @@ def make_search_fn(
     filter pool fits the candidate budget and is re-scored whole), "probe"
     or "traversal" (the best-first pop loop, a `TraversalFn`).  ``state``
     is the host snapshot the probe builds its tables from; without it the
-    probe is never chosen.  ``multipop`` must resolve to 1: the multi-pop
-    variant is not ported and raises `NotImplementedError`."""
+    probe is never chosen.  ``multipop`` (`resolve_multipop`) sets the
+    traversal's pops per step on its small tier."""
     if idx.n_items == 0 or not idx.roots:
         def empty_fn(qv, qn, qe, qf):
             b = qv.shape[0]
@@ -1104,10 +1255,7 @@ def make_search_fn(
             filter_slots=filter_slots,
         )
         return fn, "probe"
-    pops_per_step = resolve_multipop(multipop)
-    if pops_per_step > 1:
-        raise NotImplementedError(_MULTIPOP_TODO.format(pops_per_step))
-    return TraversalFn(idx, count, sk_exact, filter_slots, rescore), "traversal"
+    return TraversalFn(idx, count, sk_exact, filter_slots, rescore, multipop), "traversal"
 
 
 def _pad_count(ids, dists, count):

@@ -21,7 +21,8 @@ reference `Writer`/`ArroyBuilder` (reference: src/writer.rs:37-265):
    (`builder.grow_trees`), within the memory budget when one is given;
 8. metadata + version.
 
-Multi-device builds are not ported.
+`ArroyBuilder.mesh` grows step 7 with the per-level compute sharded over
+a `parallel.mesh.Mesh` (`parallel.build.grow_trees_sharded`).
 """
 
 from __future__ import annotations
@@ -70,6 +71,11 @@ class BuildOptions:
     cancel: CancelFn = lambda: False
     progress: ProgressFn = lambda p: None
     seed: int = 42
+    #: a `parallel.mesh.Mesh`: grow the forest with the per-level compute
+    #: sharded over it (`parallel.build`), the multi-device counterpart of
+    #: the reference's rayon pool (src/writer.rs:568-591).  Ignored when
+    #: `available_memory` makes the build stream.
+    mesh: object = None
 
 
 class ArroyBuilder:
@@ -96,6 +102,11 @@ class ArroyBuilder:
 
     def cancel(self, fn: CancelFn) -> "ArroyBuilder":
         self._opt.cancel = fn
+        return self
+
+    def mesh(self, mesh) -> "ArroyBuilder":
+        """Build over a `parallel.mesh.Mesh`: one forest, compute sharded."""
+        self._opt.mesh = mesh
         return self
 
     def progress(self, fn: ProgressFn) -> "ArroyBuilder":
@@ -378,8 +389,11 @@ class Writer:
         # streaming mode: the item matrix stays on the host and each grow
         # or routing call uploads the rows it needs (the reference's
         # fit_in_memory); resident mode syncs the store's device mirror,
-        # which uploads only the slots changed since its last sync
-        streaming = budget_items is not None and budget_items < len(item_ids)
+        # which uploads only the slots changed since its last sync.  Mesh
+        # mode keeps the host mirror too: the sharded grow uploads each
+        # shard's rows to its own device
+        mesh_mode = opt.mesh is not None and budget_items is None
+        streaming = (budget_items is not None and budget_items < len(item_ids)) or mesh_mode
         if streaming:
             rows_dev = hnorms_dev = extras_dev = None
         else:
@@ -457,7 +471,12 @@ class Writer:
             if len(ids) > split_after:
                 cancelled()
                 seeds.append((nid, ctx.ids_to_slots(ids)))
-        self._grow_with_budget(ctx, seeds, gen)
+        if mesh_mode:
+            from .parallel.build import grow_trees_sharded
+
+            grow_trees_sharded(ctx, seeds, gen, opt.mesh)
+        else:
+            self._grow_with_budget(ctx, seeds, gen)
 
         # 8. metadata + version (reference: src/writer.rs:609-628)
         opt.progress(WriterProgress(MainStep.WRITE_THE_METADATA))

@@ -31,9 +31,12 @@ exits non-zero:
    resolve to the probe; bench.py's search_k policy (start at 2000,
    double until recall@10 against f32x1 reaches 0.95) for bf16, int8 and
    f32 block tables; 64 queries held against the same searcher on the
-   CPU; then kernel 3 timed on a real selection of blocks, with the
-   share of distinct blocks in the whole selection and in the probe's
-   chunks of it, and its rates on total, distinct and read bytes;
+   CPU; the default (bf16) probe at search_k 4000 and 8000 with the JAX
+   package's re-score cut (512) and the port's (search_k over
+   `probe.CUT_SHARE` past the floor), qps and recall; then kernel 3 timed on a real selection of
+   blocks, with the share of distinct blocks in the whole selection and
+   in the probe's chunks of it, and its rates on total, distinct and read
+   bytes;
 7. traversal slice (run inside phase 4, on its reopened index) — the
    best-first forest traversal, which ``searcher(engine="forest")``
    resolves to under 262,144 items: batches of 256 of phase 4's queries,
@@ -41,7 +44,12 @@ exits non-zero:
    per batch, whether the small tier sufficed, the re-score mode and
    CUDA-event times of its four stages; 64 queries held against the same
    searcher on the CPU, `nns()` against the searcher, and one filtered
-   batch (10% of the ids).  It has no kernel of its own;
+   batch (10% of the ids); then the multi-pop sweep: P = 1, 4, 16 pops a
+   step at search_k 2000, 4000 and 8000, with qps, loop steps and pops a
+   batch, device events a batch (`torch.profiler`) and recall@10; P = 1
+   must answer as the default searcher did, and P = 16's loop at the full
+   budget and an exhaustive search_k as P = 1's.  It has no kernel of its
+   own;
 8. large-corpus exact serving — 1,000,000 x 768 of the same corpus model
    (drawn on the card, seed 42), euclidean and "binary quantized
    cosine", 10 trees, 2 batches of 2048, whose [B, M] matrix (8.2 GB)
@@ -89,11 +97,30 @@ exits non-zero:
    of 2000·2^n, and whose forest equals the euclidean one node for node;
    (d) one exact batch inside `utils.profiling.trace`, whose trace must
    name kernel 1's CUDA function.  It prints each part's time and its
-   launches per kernel instance.
+   launches per kernel instance;
+11. multi-device on one card (`arroy_tpu_torch.parallel`), 4 shards on
+   cuda:0 beside 1 shard: (a) `ShardedExactIndex` over phase 8's
+   1,000,000 x 768 corpus, 2 batches of 2048, equal (tie-aware) to the
+   single-device f32x1 engine at 4 shards and at 1, one filtered batch
+   (a third of the ids) against a float64 brute force over the filter,
+   BQ cosine at 4 shards (kernel 2 a shard, counted) equal to the
+   single-device BQ exact engine and finding every row at distance 0,
+   kernel 2 held bit-equal to its plain version on shard 0's words, ms a
+   batch and peak GiB; (b)
+   `ShardedForestIndex.build` over its first 262,144 rows (4 shards x 10
+   trees): `search` and `probe_search` (bf16 tables, kernel 3 counted)
+   under bench.py's search_k policy, doubling up to 5 times, to
+   recall@10 0.95 against exact, with qps; kernel 3 held against its
+   plain version on shard 0's tables; (c) `ArroyBuilder.mesh` over the
+   same rows on 4 shards and on 1: equal node for node, valid, traversal
+   recall@10 at search_k 8000 within 0.02 of a resident build, the three
+   build times, then a 1% update built on the mesh; (d)
+   `entry.dryrun_multichip(4)`.
 
 Kernel launch counts are reset right before each main path (phases 4-5,
-phase 6, phase 8, phase 9 and phase 10) and read right after it: every
-kernel of that path must have launched there.  Launches that hold a kernel against its plain
+phase 6, phase 8, phase 9, phase 10, and each part of phase 11: (a)
+euclidean, (a) BQ, (b), (c)-(d)) and read right after it: every kernel
+of that path must have launched there.  Launches that hold a kernel against its plain
 version inside a path (`uncounted`) leave its counts as they were.  The
 last lines are the per-kernel JSON record, the nvidia-smi line and the
 result.
@@ -120,6 +147,8 @@ M, D, N_TREES, K, BATCH, N_BATCHES = 100_000, 768, 10, 10, 2048, 4
 #: forest engines, and bench.py's recall target and search_k policy
 M_PROBE, B_PROBE, N_PROBE_BATCHES = 262_144, 256, 8
 TARGET_RECALL, SEARCH_K0, SK_DOUBLINGS = 0.95, 2000, 3
+#: phase 7's multi-pop sweep: pops a step, and the search_k of each
+MULTIPOP, MULTIPOP_SK = (1, 4, 16), (2000, 4000, 8000)
 #: phase 8: a corpus past the [B, M] budget at B = 2048, served in batches
 #: of 2048 (streamed) and held against sub-batches of 256 (the matrix)
 M_LARGE, N_LARGE_BATCHES, B_MATRIX = 1_000_000, 2, 256
@@ -634,12 +663,14 @@ def traversal_slice(path, r, queries, ref_ids):
     t_phase = time.perf_counter()
     batches = [queries[i:i + B_PROBE] for i in range(0, len(queries), B_PROBE)]
     sk = SEARCH_K0
+    policy = {}  # search_k -> the default searcher's (ids, dists)
     for step in range(SK_DOUBLINGS + 1):
         s = r.searcher(K, search_k=sk, engine="forest")  # no traversal=
         assert s.route == "traversal", s.route
         fn = s.device_fn
         f0 = fn.fallbacks
         ids, dists = (a[:, :K] for a in run_batches(s, batches, f"traversal sk={sk}"))
+        policy[sk] = (ids, dists)
         rc = recall_of(ids, ref_ids)
         pops, small, stages = [], [], []
         for b in batches:
@@ -697,7 +728,95 @@ def traversal_slice(path, r, queries, ref_ids):
                           batches[:1], f"f32x1 filtered {n_cand} ids")
     say("traversal", f"filtered {n_cand} ids sk={sk}: recall@{K} vs f32x1 over the filter "
         f"{recall_of(fids, rids):.4f}, pops per query max {int(filt.device_fn.last_pops.max())}")
+    multipop_sweep(path, r, batches, ref_ids, policy)
     say("time", f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def traversal_events(path, qfile):
+    """Device-side events (kernels, copies) and device-busy ms of one batch
+    of the traversal at each P and search_k of phase 7's sweep, from
+    `torch.profiler` (operator events carry the same time again), one JSON
+    line each.  Phase 7 runs this in a child process: in the smoke run's
+    own process, later `torch.profiler` sessions (phase 10 (d)) recorded
+    no device event after these."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from arroy_tpu_torch import Database, Reader
+
+    db = Database(path, device="cuda")
+    r = Reader.open(db.read(), 0, db, metric="euclidean")
+    batch = np.load(qfile)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for P in MULTIPOP:
+        for sk in MULTIPOP_SK:
+            s = r.searcher(K, search_k=sk, engine="forest", multipop=P)
+            dq = s.prepare_queries(batch)
+            s.device_fn(*dq)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                s.device_fn(*dq)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            print(json.dumps({"P": P, "search_k": sk, "device_events": sum(e.count for e in ev),
+                              "device_busy_ms": sum(e.self_device_time_total for e in ev) / 1e3}),
+                  flush=True)
+
+
+def multipop_sweep(path, r, batches, ref_ids, policy):
+    """Phase 7's multi-pop sweep: the traversal at P pops a step on its
+    small tier, for each P of `MULTIPOP` and search_k of `MULTIPOP_SK`:
+    qps, loop steps and pops a batch, device events a batch and recall@10
+    against f32x1.  P = 1 must answer as the default searcher did at the
+    same search_k; P = 16's loop at the full budget and an exhaustive
+    search_k must collect what P = 1's does (64 queries, tie-aware)."""
+    out = []
+    for P in MULTIPOP:
+        for sk in MULTIPOP_SK:
+            s = r.searcher(K, search_k=sk, engine="forest", multipop=P)
+            fn = s.device_fn
+            assert s.route == "traversal" and fn.P == (P if fn.two_tier else 1), (s.route, fn.P)
+            times = {}
+            ids, dists = (a[:, :K] for a in run_batches(s, batches, f"traversal P={P} sk={sk}", times))
+            if P == 1 and sk in policy:
+                np.testing.assert_array_equal(ids, policy[sk][0])
+                np.testing.assert_array_equal(dists, policy[sk][1])
+            steps, pops, f0 = [], [], fn.fallbacks
+            for b in batches:
+                fn(*s.prepare_queries(b))
+                steps.append(fn.last_steps)
+                pops.append(float(fn.last_pops.sum()))
+            out.append(dict(P=P, P_small_tier=fn.P, search_k=sk, recall=recall_of(ids, ref_ids),
+                            qps=len(batches[0]) / (times[f"traversal P={P} sk={sk}"] / 1e3),
+                            ms=times[f"traversal P={P} sk={sk}"], steps=float(np.mean(steps)),
+                            pops=float(np.mean(pops)), fallbacks=fn.fallbacks - f0))
+    # device events of batch 0, profiled in a child process
+    qfile = f"{os.path.dirname(path)}/traversal_batch.npy"
+    np.save(qfile, batches[0])
+    child = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.traversal_events({path!r}, {qfile!r})"],
+        capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600,
+    )
+    assert child.returncode == 0, child.stderr[-3000:]
+    events = [json.loads(line) for line in child.stdout.splitlines() if line.startswith("{")]
+    assert len(events) == len(out), child.stdout[-3000:]
+    for row, ev in zip(out, events):
+        assert (row["P"], row["search_k"]) == (ev["P"], ev["search_k"])
+        row.update(device_events=ev["device_events"], device_busy_ms=ev["device_busy_ms"])
+        say("multipop", json.dumps(row))
+    # P = 16's loop at the full budget against P = 1's, at a search_k past
+    # every tree's items (both collect every leaf)
+    s = r.searcher(K, search_k=10**7, engine="forest", rescore="exact")
+    fn = s.device_fn
+    dq = s.prepare_queries(batches[0][:64])
+    m = fn.margins(dq[0], dq[3])
+    got = [fn.rescore(fn.expand(fn.traverse(m, fn.pmax, fn.q_cap, P)[0]), *dq[:3]) for P in (16, 1)]
+    (gi, gd), (wi, wd) = ((i[:, :K].cpu().numpy(), d[:, :K].cpu().numpy()) for i, d in got)
+    tie_aware_equal(gi, gd, wi, wd)
+    say("multipop", f"P=16 at search_k 10^7 (full budget, pmax {fn.pmax}) equals P=1 on 64 "
+        f"queries (tie-aware)")
+    return out
 
 
 def probe_slice(tmp):
@@ -764,7 +883,30 @@ def probe_slice(tmp):
         n_diff = probe_agree(ids[:64], dists[:64], cid.numpy(), cd.numpy())
         say("probe", f"{kind}: 64 queries agree with the CPU run ({n_diff} ids differ, "
             f"at most 1 per row; {time.perf_counter() - t0:.2f} s)")
+    probe_cuts(r, batches, ref_ids)
     return served, batches
+
+
+def probe_cuts(r, batches, ref_ids):
+    """The re-score cut's cost: the default (bf16) probe at search_k 4000
+    and 8000 with the JAX package's cut (512) and the port's (search_k
+    over `probe.CUT_SHARE` past the floor), qps and recall@10 against f32x1."""
+    from arroy_tpu_torch import probe
+
+    for sk in (4000, 8000):
+        for jax_cut in (True, False):
+            probe.JAX_CUT = jax_cut
+            try:
+                s = r.searcher(K, search_k=sk, engine="forest")
+            finally:
+                probe.JAX_CUT = False
+            label = f"probe cut {'jax' if jax_cut else 'port'} sk={sk} k2={s.device_fn.k2}"
+            times = {}
+            ids, _ = run_batches(s, batches, label, times)
+            say("probe", json.dumps({"search_k": sk, "cut": "jax" if jax_cut else "port",
+                                     "k2": s.device_fn.k2, "recall": recall_of(ids, ref_ids),
+                                     "qps": len(batches[0]) / (times[label] / 1e3),
+                                     "ms": times[label]}))
 
 
 def time_gather(gs, served, batches, rec):
@@ -1596,7 +1738,8 @@ def operator_slice(tmp):
     with open(f"{tmp}/trace/{name}") as f:
         text = f.read()
     hits = [e for e in prof.key_averages() if "fused_select_kernel" in e.key]
-    assert "fused_select_kernel" in text and hits, "the trace does not name kernel 1"
+    named = sorted({e.key[:40] for e in prof.key_averages() if e.self_device_time_total > 0})
+    assert "fused_select_kernel" in text and hits, f"the trace does not name kernel 1: {named}"
     say("profile", f"{name}: {len(text) / 1e6:.2f} MB; kernel 1 in it as "
         f"{hits[0].key[:60]!r}, {hits[0].count} call(s)")
     part_done("d", t0, c0)
@@ -1605,6 +1748,258 @@ def operator_slice(tmp):
     say("operator", json.dumps(rec))
     say("time", f"phase 10 took {rec['phase10_s']:.1f} s")
     return counts()
+
+
+#: phase 11: shards on the one card, the sharded exact corpus and the
+#: sharded forest's / mesh build's corpus (bench.py's model, seed 42)
+N_SHARDS, M_SHARDED_FOREST = 4, 262_144
+#: the sharded forest's search_k policy may double past phase 6's (each
+#: shard searches a quarter of the budget)
+SHARDED_SK_DOUBLINGS = 5
+
+
+def multidevice_slice(rec):
+    """Phase 11: the multi-device layer (`arroy_tpu_torch.parallel`) with
+    `N_SHARDS` shards on the one card beside one shard.  Every kernel's
+    counts are reset just before each part and read just after it; returns
+    the phase's launches per kernel instance, summed over the parts."""
+    import torch
+
+    from arroy_tpu_torch import Database, Reader, Writer, entry, probe
+    from arroy_tpu_torch.models import items
+    from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
+    from arroy_tpu_torch.parallel.forest import ShardedForestIndex
+    from arroy_tpu_torch.parallel.mesh import ShardedExactIndex, _host_queries, make_mesh
+
+    t_phase = time.perf_counter()
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+    out = {}
+    counters = (fs.launches, bk.launches, gs.launches)
+    total = {k: 0 for c in counters for k in c}
+
+    def reset():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def read(part):
+        got = {k: n for c in counters for k, n in c.items()}
+        for k, n in got.items():
+            total[k] += n
+        say("launches", f"multi-device path ({part}): {json.dumps(got)}")
+        return got
+    mesh, mesh1 = make_mesh(N_SHARDS), make_mesh(1)
+    assert mesh.devices.size == N_SHARDS and all(d == torch.device("cuda", 0) for d in mesh.devices.flat)
+    x = card_corpus(M_LARGE + BATCH * N_LARGE_BATCHES, D, 42)
+    x, queries = x[:M_LARGE], x[M_LARGE:]
+    batches = [queries[i * BATCH:(i + 1) * BATCH] for i in range(N_LARGE_BATCHES)]
+
+    # (a) the sharded exact index over 1M x 768 against the single-device
+    # f32x1 engine (phase 8's route), on the same batches
+    def timed(fn, label):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = [fn(b) for b in batches]
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        out[label] = dict(ms=ms, qps=BATCH / (ms / 1e3),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        say("multidevice", f"{label}: {json.dumps(out[label])}")
+        return np.concatenate([i for i, _ in res]), np.concatenate([d for _, d in res])
+
+    db = Database(None, device="cuda")
+    w = Writer(db, 0, D)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(M_LARGE, dtype=np.uint32), x)
+        w.builder(seed=42).n_trees(1).build(wtxn)
+    s = Reader.open(db.read(), 0, db).searcher(K, engine="exact", precision="f32x1")
+    ref = timed(lambda b: tuple(a.cpu().numpy() for a in s.device_fn(*s.prepare_queries(b))),
+                "f32x1 engine, 1 device")
+    del s, db, w
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+    reset()
+    for n, m in ((N_SHARDS, mesh), (1, mesh1)):
+        t0 = time.perf_counter()
+        idx = ShardedExactIndex(m, x)
+        say("multidevice", f"ShardedExactIndex {M_LARGE} x {D} on {n} shard(s): "
+            f"{time.perf_counter() - t0:.2f} s to encode and place")
+        got = timed(lambda b: idx.search(b, K), f"sharded exact {n} shard(s)")
+        tie_aware_equal(*got, *ref, rtol=1e-5)
+        say("multidevice", f"sharded exact {n} shard(s) equals the f32x1 engine on "
+            f"{len(ref[0])} queries (tie-aware)")
+        if n == N_SHARDS:
+            cand = np.arange(0, M_LARGE, 3)
+            fq = batches[0][:64]
+            fids, fd = idx.search(fq, K, candidates=cand)
+            assert bool(np.isin(fids, cand).all()), "a filtered id outside the candidates"
+            x_f = torch.from_numpy(x[cand]).cuda()
+            np.testing.assert_allclose(fd, brute_force_top(x_f, fq, K), rtol=1e-5)
+            del x_f
+            say("multidevice", f"filtered ({len(cand)} ids): 64 queries equal a float64 brute "
+                f"force over the filter")
+        del idx
+        torch.cuda.empty_cache()
+    read("a, euclidean")
+
+    # BQ cosine: each shard's [2048 x 250,000] popcount matrix is kernel 2
+    # (under the exact engine's 4 GiB matrix budget), counted from 0 here;
+    # held against the single-device BQ exact engine (its scan, kernel 2 on
+    # 262,144-row chunks) on the same batch, tie-aware
+    metric = "binary quantized cosine"
+    bq = ShardedExactIndex(mesh, x, metric=metric)
+    reset()
+    got = timed(lambda b: bq.search(b, K), f"sharded BQ {N_SHARDS} shards")
+    bids, bd = bq.search(x[:BATCH], 1)
+    launched = read("a, BQ")["bq_hamming"]
+    assert launched >= N_SHARDS * (N_LARGE_BATCHES + 1), f"kernel 2 launched {launched} times"
+    assert bool((bd[:, 0] == 0).all()), "a row that does not find itself at hamming 0"
+    out["bq_self"] = float(np.mean(bids[:, 0] == np.arange(BATCH)))
+    say("multidevice", f"BQ cosine {N_SHARDS} shards: kernel 2 launched {launched} times; every "
+        f"one of {BATCH} rows finds a row at distance 0, its own id in {out['bq_self']:.4f} "
+        f"(others share its sign bits)")
+    with uncounted(*counters):
+        db = Database(None, device="cuda")
+        w = Writer(db, 0, D, metric=metric)
+        with db.write() as wtxn:
+            w.add_items(wtxn, np.arange(M_LARGE, dtype=np.uint32), x)
+            w.builder(seed=42).n_trees(1).build(wtxn)
+        s = Reader.open(db.read(), 0, db, metric=metric).searcher(K, engine="exact")
+        ref_bq = [tuple(a.cpu().numpy() for a in s.device_fn(*s.prepare_queries(b))) for b in batches]
+        tie_aware_equal(*got, *(np.concatenate(a) for a in zip(*ref_bq)), rtol=1e-6)
+        say("multidevice", f"sharded BQ equals the single-device BQ exact engine ({s.route}) on "
+            f"{len(got[0])} queries (distances to rtol 1e-6, tie-aware ids)")
+        del s, db, w
+        items._DEVICE_MIRROR.clear()
+        # kernel 2 at the shape a shard gives it, bit-equal to its plain
+        # version on shard 0's words against the first batch's
+        qw = torch.from_numpy(_host_queries(bq.metric, batches[0], D)[0]).cuda()
+        words = bq.shards[0].rows
+        h = bk.bq_hamming_matrix(qw, words)
+        assert torch.equal(h, bk.bq_hamming_matrix_reference(qw, words)), \
+            "kernel 2 differs from its plain version on shard 0"
+    rec["bq_hamming"]["phase11_check"] = {"shape": [int(qw.shape[0]), int(words.shape[0]),
+                                                    int(words.shape[1])], "bit_equal": True}
+    say("kernel2", f"bq_hamming on shard 0's words, B={qw.shape[0]} M={words.shape[0]} "
+        f"w={words.shape[1]}: bit-equal to its plain version")
+    del bq, qw, words, h
+    torch.cuda.empty_cache()
+
+    # (b) the sharded forest over 262,144 x 768: traversal and probe
+    # fan-out under bench.py's search_k policy, kernel 3 counted
+    xs = x[:M_SHARDED_FOREST]
+    qb = [batches[0][i:i + B_PROBE] for i in range(0, 4 * B_PROBE, B_PROBE)]
+    t0 = time.perf_counter()
+    fidx = ShardedForestIndex.build(mesh, xs, n_trees=N_TREES, seed=42)
+    torch.cuda.synchronize()
+    say("multidevice", f"ShardedForestIndex.build {M_SHARDED_FOREST} x {D}, {N_SHARDS} shards x "
+        f"{N_TREES} trees: {time.perf_counter() - t0:.2f} s")
+    ref_ids = np.concatenate([ShardedExactIndex(mesh1, xs).search(b, K)[0] for b in qb])
+    reset()
+    for name, fn in (("traversal", fidx.search), ("probe", fidx.probe_search)):
+        sk = SEARCH_K0
+        for step in range(SHARDED_SK_DOUBLINGS + 1):
+            fn(qb[0], K, search_k=sk)  # warm-up (the probe packs its tables)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = np.concatenate([fn(b, K, search_k=sk)[0] for b in qb])
+            wall = time.perf_counter() - t0
+            rc = recall_of(ids, ref_ids)
+            row = dict(search_k=sk, recall=rc, qps=len(ids) / wall, ms=wall * 1e3 / len(qb))
+            say("multidevice", f"sharded {name}: {json.dumps(row)}")
+            if rc >= TARGET_RECALL or step == SHARDED_SK_DOUBLINGS:
+                break
+            sk *= 2
+        out[f"sharded_{name}"] = row
+        assert rc >= TARGET_RECALL, f"sharded {name} recall {rc} < {TARGET_RECALL} at sk={sk}"
+    launched = read("b")["gather_score_bf16"]
+    assert launched > 0, "kernel 3 never launched on the sharded probe"
+    tables = fidx.enable_probe(dtype="bf16")
+    t, sh = tables[0], fidx.shards[0]
+    plan = fidx.probe_plan(K, out["sharded_probe"]["search_k"], tables, "bf16")
+    qv = torch.from_numpy(qb[0]).cuda()
+    bid = probe._rank_blocks(fidx.metric, plan["L"], t.nb_max, probe.block_scale(fidx.metric),
+                             t.cent, t.caux, t.valid, qv).to(torch.int32).contiguous()
+    with uncounted(gs.launches):
+        err = check_gather(gs, t.blk_rows, bid, qv.to(torch.bfloat16).float().contiguous())
+    rec["gather_score_bf16"]["phase11_check"] = {"max_abs_err": err, "shape": list(bid.shape),
+                                                 "shard_items": sh.n_items}
+    say("multidevice", f"kernel 3 on shard 0's tables ({sh.n_items} items, bid {list(bid.shape)}): "
+        f"max |err| {err:.3g} against its plain version")
+    del fidx, tables
+    torch.cuda.empty_cache()
+
+    # (c) one forest built on the mesh: equal to the 1-shard build node for
+    # node, valid, and within 0.02 of the resident build's recall
+    def build(m):
+        db = Database(None, device="cuda")
+        w = Writer(db, 0, D)
+        with db.write() as wtxn:
+            w.add_items(wtxn, np.arange(M_SHARDED_FOREST, dtype=np.uint32), xs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = w.builder(seed=42).n_trees(N_TREES)
+            if m is not None:
+                b.mesh(m)
+            b.build(wtxn)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        return db, w, sec
+
+    reset()
+    built = {label: build(m) for label, m in (("mesh4", mesh), ("mesh1", mesh1), ("resident", None))}
+    fa, fb = (built[k][0].read().state(0).forest for k in ("mesh4", "mesh1"))
+    assert same_forest(fa, fb), "the 4-shard build differs from the 1-shard build"
+    readers = {k: Reader.open(v[0].read(), 0, v[0]) for k, v in built.items()}
+    for k in ("mesh4", "resident"):
+        readers[k].assert_validity()
+    say("multidevice", f"mesh builds of {M_SHARDED_FOREST} x {D}, {N_TREES} trees: 4 shards "
+        f"{built['mesh4'][2]:.2f} s, 1 shard {built['mesh1'][2]:.2f} s, resident "
+        f"{built['resident'][2]:.2f} s; the 4- and 1-shard forests equal node for node "
+        f"({len(fa.leaves)} leaves); assert_validity ok")
+    ex = readers["resident"].searcher(K, engine="exact", precision="f32x1")
+    ref_b = np.concatenate([ex.device_fn(*ex.prepare_queries(b))[0][:, :K].cpu().numpy() for b in qb])
+    rcs = {}
+    for k in ("mesh4", "resident"):
+        ids, _ = run_batches(readers[k].searcher(K, search_k=8000, engine="forest", traversal="xla"),
+                             qb, f"{k} traversal sk=8000")
+        rcs[k] = recall_of(ids[:, :K], ref_b)
+    say("multidevice", f"traversal recall@{K} at search_k 8000: mesh {rcs['mesh4']:.4f}, "
+        f"resident {rcs['resident']:.4f}")
+    assert abs(rcs["mesh4"] - rcs["resident"]) <= 0.02, rcs
+    out["mesh_build"] = dict(mesh4_s=built["mesh4"][2], mesh1_s=built["mesh1"][2],
+                             resident_s=built["resident"][2], recall_mesh=rcs["mesh4"],
+                             recall_resident=rcs["resident"])
+    db, w, _ = built["mesh4"]
+    n_upd = M_SHARDED_FOREST // 100
+    with db.write() as wtxn:
+        w.del_items(wtxn, np.arange(n_upd, dtype=np.uint32))
+        w.add_items(wtxn, np.arange(M_SHARDED_FOREST, M_SHARDED_FOREST + n_upd, dtype=np.uint32),
+                    x[M_SHARDED_FOREST:M_SHARDED_FOREST + n_upd])
+        t0 = time.perf_counter()
+        w.builder(seed=43).n_trees(N_TREES).mesh(mesh).build(wtxn)
+        torch.cuda.synchronize()
+        out["mesh_build"]["update_s"] = time.perf_counter() - t0
+    r = Reader.open(db.read(), 0, db)
+    r.assert_validity()
+    assert r.n_items() == M_SHARDED_FOREST and not r.contains_item(0)
+    assert r.nns(1).search_k(20_000).by_item(M_SHARDED_FOREST)[0][0] == M_SHARDED_FOREST
+    say("multidevice", f"1% update on the mesh ({n_upd} deleted, {n_upd} added): "
+        f"{out['mesh_build']['update_s']:.2f} s, assert_validity ok")
+    del built, readers, db, w, r
+    items._DEVICE_MIRROR.clear()
+    torch.cuda.empty_cache()
+
+    # (d) the five checks of __graft_entry__.dryrun_multichip on the port
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(N_SHARDS)
+    say("multidevice", f"dryrun_multichip({N_SHARDS}) passed in {time.perf_counter() - t0:.1f} s")
+    read("c-d")
+    out["phase11_s"] = time.perf_counter() - t_phase
+    say("multidevice", json.dumps(out))
+    say("time", f"phase 11 took {out['phase11_s']:.1f} s")
+    return total
 
 
 def main() -> int:
@@ -1737,6 +2132,13 @@ def main() -> int:
         assert sum(n for k, n in p10.items() if k.startswith(kernel)) > 0, \
             f"{kernel} never launched on the operator path"
     say("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 11. the multi-device layer on the one card (counts from 0 a part)
+    p11 = multidevice_slice(rec)
+    say("launches", f"multi-device path: {json.dumps(p11)}")
+    for name in rec:
+        rec[name]["phase11_launches"] = p11[name]
+    say("time", f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its main path"
         rec[name]["launches"] = n

@@ -4,7 +4,7 @@ a built-in metric and a registered custom one, on one NVIDIA GPU.
 
 Run from the repository root:
 
-    PYTHONPATH=. python3 scripts/torch_probe_cut.py [--items N] [--device cuda]
+    PYTHONPATH=. python3 scripts/torch_probe_cut.py [--items N] [--device cuda] [--shares 2,4,8,16]
 
 The corpus is `chip_smoke.py` phase 10's: `sample_vectors`' model with 64
 parents (bench.py's clustered corpus), seed 42, 768-d, and 2048 queries of
@@ -12,11 +12,15 @@ the same parents.  Two indexes of 10 trees are built over it: euclidean,
 and "half-euclidean" (euclidean's formulas under another name, registered
 with `register_metric`, which the probe scores in-block by the dot product
 of the generic branch).  For each search_k of 2000·2ⁿ, each index is
-probed (`traversal="probe"`, default tables) at two cuts: the plain one
-(512 candidates) and the estimate's (half of search_k, at least 1536).
-Prints one JSON line each, with recall@10 against the euclidean index's
-f32x1 exact search, the cut each metric takes by default, and the card's
-name and power limit.
+probed (`traversal="probe"`, default tables) at the JAX package's cut
+(`probe.JAX_CUT`: 512 candidates for both) and at the port's
+(`probe.rescore_cut`: search_k over `probe.CUT_SHARE` past the floor of
+512, half of search_k past 1536 for the custom metric's estimate), once
+for each share of ``--shares`` (default: the module's).  Prints one JSON
+line each, with recall@10
+against the euclidean index's f32x1 exact search, qps over the 2048
+queries in batches of 256 (CUDA events after a warm-up batch), and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
@@ -42,7 +47,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--items", type=int, default=262_144)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shares", default=str(probe.CUT_SHARE),
+                    help="comma-separated values of probe.CUT_SHARE to measure the port's cut at")
     args = ap.parse_args()
+    shares = [int(v) for v in args.shares.split(",")]
     if torch.device(args.device).type == "cuda":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip()
@@ -69,24 +77,42 @@ def main() -> int:
     batches = [q[i:i + 256] for i in range(0, B, 256)]
 
     def ids_of(s):
-        return np.concatenate([s.device_fn(*s.prepare_queries(b))[0][:, :K].cpu().numpy()
-                               for b in batches])
+        """(ids of every batch, qps): CUDA events around the batches after
+        a warm-up batch (a host clock on the CPU)."""
+        dqs = [s.prepare_queries(b) for b in batches]
+        s.device_fn(*dqs[0])
+        if torch.device(args.device).type == "cuda":
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = [s.device_fn(*dq) for dq in dqs]
+            e1.record()
+            torch.cuda.synchronize()
+            sec = e0.elapsed_time(e1) / 1e3
+        else:
+            t0 = time.perf_counter()
+            res = [s.device_fn(*dq) for dq in dqs]
+            sec = time.perf_counter() - t0
+        return np.concatenate([i[:, :K].cpu().numpy() for i, _ in res]), B / sec
 
-    ref = ids_of(readers["euclidean"].searcher(K, engine="exact", precision="f32x1"))
+    ref, _ = ids_of(readers["euclidean"].searcher(K, engine="exact", precision="f32x1"))
     for sk in (2000, 4000, 8000, 16000, 32000):
         for metric, r in readers.items():
-            s = r.searcher(K, search_k=sk, engine="forest", traversal="probe")
-            fn = s.device_fn
-            pool = fn.tables.n_trees * fn.L * fn.tables.block
-            default = fn.k2
-            for cut, k2 in (("plain", min(512, pool)),
-                            ("estimate", min(probe._next_pow2(max(1536, sk // 2)), pool))):
-                fn.k2 = k2
-                got = ids_of(s)
+            # the custom metric's estimate takes half of search_k at any share
+            ports = shares if metric == "euclidean" else shares[:1]
+            for cut, share in [("jax", None)] + [("port", v) for v in ports]:
+                probe.JAX_CUT, saved = cut == "jax", probe.CUT_SHARE
+                probe.CUT_SHARE = share or saved
+                try:
+                    s = r.searcher(K, search_k=sk, engine="forest", traversal="probe")
+                finally:
+                    probe.JAX_CUT, probe.CUT_SHARE = False, saved
+                fn = s.device_fn
+                got, qps = ids_of(s)
                 rc = sum(len(set(a) & set(b)) for a, b in zip(got, ref)) / ref.size
                 print(json.dumps({"items": args.items, "metric": metric, "search_k": sk,
-                                  "L": fn.L, "cut": cut, "k2": k2, "default_k2": default,
-                                  "recall": rc, "card": smi}), flush=True)
+                                  "L": fn.L, "cut": cut, "share": share, "k2": fn.k2,
+                                  "recall": rc, "qps": qps, "card": smi}), flush=True)
     return 0
 
 

@@ -218,9 +218,10 @@ def test_recall_sweep_probe_and_persisted_reuse(tmp_path, capsys):
     assert again.startswith("reusing persisted index")
     # the same index and queries give the same recall
     assert re.findall(r"recall@10=" + NUM, first) == re.findall(r"recall@10=" + NUM, again)
-    with pytest.raises(NotImplementedError):
-        recall_sweep.main(["--m", "300", "--dims", "8", "--queries", "4", "--search-k", "40",
-                           "--data", "random", "--multipop", "2"] + CPU)
+    # --multipop runs the multi-pop traversal (it raised before the port had one)
+    out = _run(capsys, recall_sweep, ["--m", "300", "--dims", "8", "--queries", "4", "--search-k",
+                                      "40", "--data", "random", "--multipop", "2"] + CPU)
+    assert re.findall(r"search_k=\s+40\s+recall@10=" + NUM, out), out
 
 
 def test_fuzz_short_run_with_reloads(tmp_path, capsys):

@@ -813,3 +813,119 @@ def test_cuda_upgraded_index_search_matches_cpu(tmp_path):
                                   np.array([[v for _, v in row] for row in res]))
         for engine in ("exact", "forest"):
             tie_aware_equal(*out[dev, engine], *out["cpu", engine], rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer (`parallel/`) on one card
+# ---------------------------------------------------------------------------
+
+
+def _single_index(dev, m=6000, d=64, metric="euclidean", seed=21):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    db = Database(None, device=dev)
+    w = Writer(db, 0, d, metric=metric)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(m), x)
+        w.builder(seed=3).n_trees(4).build(wtxn)
+    q = x[rng.integers(m, size=64)] + 0.3 * rng.standard_normal((64, d)).astype(np.float32)
+    return Reader.open(db.read(), 0, db, metric=metric), x, q
+
+
+def test_cuda_one_shard_equals_unsharded_engine():
+    """A 1-shard mesh on the card answers as the unsharded engines do:
+    the exact f32x1 engine, the traversal and the probe (kernel 3)."""
+    from arroy_tpu_torch.device import DeviceIndex
+    from arroy_tpu_torch.parallel.forest import ShardedForestIndex
+    from arroy_tpu_torch.parallel.mesh import ShardedExactIndex, make_mesh
+
+    dev = require_cuda()
+    r, x, q = _single_index(dev)
+    mesh = make_mesh(1)
+    ids, d = ShardedExactIndex(mesh, x).search(q, 10)
+    tie_aware_equal(ids, d, *_result_arrays_of(r.searcher(10, engine="exact", precision="f32x1")(q)),
+                    rtol=1e-5, atol=1e-6)
+    st = r._state
+    sf = ShardedForestIndex(mesh, [DeviceIndex.build_np(r.metric, 64, st.store, st.forest)],
+                            "euclidean", 64, states=[st])
+    want = r.searcher(10, search_k=800, engine="forest", traversal="xla", rescore="exact")(q)
+    tie_aware_equal(*sf.search(q, 10, search_k=800), *_result_arrays_of(want), rtol=1e-5, atol=1e-6)
+    n0 = gs.launches["gather_score_bf16"]
+    got = sf.probe_search(q, 10, search_k=800, n_trees=4, block=16, dtype="bf16")
+    assert gs.launches["gather_score_bf16"] > n0
+    want = r.searcher(10, search_k=800, engine="forest", traversal="probe", probe_trees=4,
+                      probe_block=16, probe_dtype="bf16")(q)
+    tie_aware_equal(*got, *_result_arrays_of(want), rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_four_shards_equal_cpu():
+    """4 shards sharing the card answer as 4 shards on the CPU: the exact
+    index, the traversal on the same margins, and the probe at an
+    exhaustive budget (every candidate re-scored, so kernel 3's summation
+    order cannot move a result)."""
+    from arroy_tpu_torch.parallel.forest import ShardedForestIndex
+    from arroy_tpu_torch.parallel.mesh import ShardedExactIndex, make_mesh, merge_topk
+
+    require_cuda()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((5000, 48)).astype(np.float32)
+    q = x[:32] + 0.3 * rng.standard_normal((32, 48)).astype(np.float32)
+    gm, cm = make_mesh(4), make_mesh(4, device="cpu")
+    for metric in ("euclidean", "binary quantized cosine"):
+        g = ShardedExactIndex(gm, x, metric=metric).search(q, 10)
+        tie_aware_equal(*g, *ShardedExactIndex(cm, x, metric=metric).search(q, 10),
+                        rtol=1e-5, atol=1e-6)
+    cf = ShardedForestIndex.build(cm, x, n_trees=3, seed=2)
+    gf = ShardedForestIndex(gm, [_pack_of(st) for st in cf._states], "euclidean", 48,
+                            states=cf._states)
+    plan = cf.plan(10, 600)
+    parts = {True: [], False: []}
+    for s in range(4):
+        cq = cf._queries(q, s)
+        margins = cf.metric.margin_matrix(cf.shards[s].normals, cf.shards[s].aux, cq[0], cq[3])
+        parts[False].append(cf.shard_search(s, plan, *cq, margins=margins))
+        parts[True].append(gf.shard_search(s, plan, *gf._queries(q, s), margins=margins.cuda()))
+    got = [_as_arrays(*merge_topk(cf.metric, 48, 10, parts[on], "cpu")) for on in (True, False)]
+    tie_aware_equal(*got[0], *got[1], rtol=1e-5, atol=1e-6)
+    kw = dict(search_k=10**6, n_trees=3, block=16, dtype="bf16")
+    tie_aware_equal(*gf.probe_search(q, 10, **kw), *cf.probe_search(q, 10, **kw),
+                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "dot-product"])
+def test_cuda_mesh_build_invariant(metric):
+    """One forest built on the card over 1 and over 4 shards: bit for bit."""
+    from arroy_tpu_torch.parallel.mesh import make_mesh
+
+    dev = require_cuda()
+    x = np.random.default_rng(6).standard_normal((20_000, 96)).astype(np.float32)
+    forests = []
+    for n in (1, 4):
+        db = Database(None, device=dev)
+        w = Writer(db, 0, 96, metric=metric)
+        with db.write() as wtxn:
+            w.add_items(wtxn, np.arange(20_000), x)
+            w.builder(seed=8).n_trees(3).mesh(make_mesh(n)).build(wtxn)
+        Reader.open(db.read(), 0, db, metric=metric).assert_validity()
+        forests.append(db.read().state(0).forest)
+    a, b = forests
+    for key in ("kind", "left", "right", "ptr", "normals", "aux"):
+        assert np.array_equal(getattr(a, key), getattr(b, key)), key
+    assert a.roots == b.roots and set(a.leaves) == set(b.leaves)
+    assert all(np.array_equal(a.leaves[k], b.leaves[k]) for k in a.leaves)
+
+
+def _pack_of(st):
+    from arroy_tpu_torch.device import DeviceIndex
+
+    return DeviceIndex.build_np(st.metric, st.dims, st.store, st.forest)
+
+
+def _as_arrays(ids, d):
+    return ids.cpu().numpy(), np.nan_to_num(d.cpu().numpy())
+
+
+def _result_arrays_of(results):
+    ids = np.array([[i for i, _ in row] for row in results])
+    d = np.array([[v for _, v in row] for row in results])
+    return ids, d

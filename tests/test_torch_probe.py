@@ -268,3 +268,87 @@ def test_traversal_auto_policy(index, monkeypatch):
         s = tr.searcher(K, search_k=600, engine="forest", traversal=traversal, rescore="exact")
         assert s.route == "traversal"
         _assert_same(want, s(q))
+
+
+# ---------------------------------------------------------------------------
+# the re-score cut: one rule for every metric, tracking search_k
+# ---------------------------------------------------------------------------
+
+SK_DOUBLING = (2000, 4000, 8000, 16000)
+
+
+@pytest.fixture(scope="module")
+def wide_index(tmp_path_factory):
+    """8,000 x 128 of bench.py's clustered model (64 parents), 8 trees,
+    built by the JAX package and opened by the port, with 64 queries of
+    the same model and their exact top-10."""
+    rng = np.random.default_rng(42)
+    m, d = 8000, 128
+    parents = rng.standard_normal((64, d)).astype(np.float32)
+    pa, pb = rng.integers(64, size=m + 64), rng.integers(64, size=m + 64)
+    x = np.where(rng.random((m + 64, d)) < 0.5, parents[pa], parents[pb]).astype(np.float32)
+    x += 0.05 * rng.standard_normal(x.shape).astype(np.float32)
+    x, q = x[:m], x[m:]
+    path = str(tmp_path_factory.mktemp("wide"))
+    db = arroy_tpu.Database(path)
+    w = arroy_tpu.Writer(db, 0, d)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(m, dtype=np.uint32), x)
+        w.builder(seed=42).n_trees(8).build(wtxn)
+    jr = arroy_tpu.Reader.open(db.read(), 0, db)
+    tdb = arroy_tpu_torch.Database(path, device="cpu")
+    tr = arroy_tpu_torch.Reader.open(tdb.read(), 0, tdb)
+    exact = _arrays(tr.searcher(K, engine="exact", precision="f32x1")(q))[0]
+    return jr, tr, q, exact
+
+
+def _probe_recall(tr, q, exact, sk):
+    s = tr.searcher(K, search_k=sk, engine="forest", traversal="probe", probe_trees=8,
+                    probe_block=16)
+    ids = _arrays(s(q))[0]
+    return sum(len(set(a) & set(b)) for a, b in zip(ids, exact)) / exact.size, s.device_fn.k2
+
+
+def test_probe_recall_does_not_fall_as_search_k_doubles(wide_index, monkeypatch):
+    """With the JAX package's cut (512 for a built-in metric) recall falls
+    as search_k doubles past 4000 on this corpus; with the port's (an
+    eighth of search_k past the floor) it never falls."""
+    _, tr, q, exact = wide_index
+    monkeypatch.setattr(t_probe, "JAX_CUT", True)
+    jax_cut = [_probe_recall(tr, q, exact, sk) for sk in SK_DOUBLING]
+    assert {k2 for _, k2 in jax_cut} == {512}
+    assert jax_cut[-1][0] < max(r for r, _ in jax_cut)  # the fault, shown on this data
+    monkeypatch.setattr(t_probe, "JAX_CUT", False)
+    own = [_probe_recall(tr, q, exact, sk) for sk in SK_DOUBLING]
+    assert [k2 for _, k2 in own] == [512, 512, 1024, 2048]
+    rec = [r for r, _ in own]
+    assert all(b >= a for a, b in zip(rec, rec[1:])), rec
+    assert all(a >= b for (a, _), (b, _) in zip(own, jax_cut))
+
+
+@pytest.mark.parametrize("sk", [4000, 8000, 16000])
+def test_probe_matches_jax_at_jax_cut(wide_index, monkeypatch, sk):
+    """At the JAX package's cut the port's probe returns its results, at a
+    budget where the port's own cut is the same and at two where it is
+    wider."""
+    jr, tr, q, _ = wide_index
+    kw = dict(search_k=sk, engine="forest", traversal="probe", probe_trees=8, probe_block=16)
+    assert tr.searcher(K, **kw).device_fn.k2 == {4000: 512, 8000: 1024, 16000: 2048}[sk]
+    monkeypatch.setattr(t_probe, "JAX_CUT", True)
+    s = tr.searcher(K, **kw)
+    assert s.device_fn.k2 == 512
+    _assert_same(jr.searcher(K, **kw)(q), s(q))
+
+
+def test_rescore_cut_rule():
+    """One rule: the floor max(32·k, 512); past it an eighth of search_k
+    for an exact in-block score, half of it for an estimate's, whose floor
+    is 3x; capped by the pool."""
+    cut = t_probe.rescore_cut
+    assert cut(10, 600, 10**6, False, False) == 512
+    assert cut(10, 4000, 10**6, False, False) == 512
+    assert cut(10, 32000, 10**6, False, False) == 4096
+    assert cut(10, 32000, 3000, False, False) == 3000
+    assert cut(10, 32000, 10**6, True, False) == cut(10, 32000, 10**6, False, True) == 16384
+    assert cut(10, 600, 10**6, True, False) == cut(10, 600, 10**6, False, True) == 2048
+    assert cut(40, 600, 10**6, False, False) == 2048

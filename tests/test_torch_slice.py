@@ -84,6 +84,8 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'arroy_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'arroy_tpu' not in sys.modules\n"
+        "walked = {'arroy_tpu_torch.parallel.' + n for n in ('mesh', 'forest', 'build')}\n"
+        "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

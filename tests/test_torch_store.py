@@ -168,3 +168,32 @@ def test_port_builds_its_own_container_alone(tmp_path):
     so = out.stdout.strip().splitlines()[-1]
     assert so == str(tmp_path / "arroy_tpu_torch" / "_build" / "_container.so")
     assert os.path.exists(so)
+
+
+@pytest.mark.parametrize("switch", [None, "0"])
+def test_device_mirror_switch(monkeypatch, switch):
+    """``ARROY_DEVICE_MIRROR=0`` (read as `arroy_tpu/models/items.py` reads
+    it) uploads the whole matrix at every sync, and a build reports it;
+    unset, a clean re-sync and a rebuild with nothing changed upload 0."""
+    from arroy_tpu_torch import writer as t_writer
+    from arroy_tpu_torch.models import items as t_items
+
+    if switch is None:
+        monkeypatch.delenv("ARROY_DEVICE_MIRROR", raising=False)
+    else:
+        monkeypatch.setenv("ARROY_DEVICE_MIRROR", switch)
+    x = np.random.default_rng(5).standard_normal((200, DIM)).astype(np.float32)
+    db = arroy_tpu_torch.Database(device="cpu")
+    w = arroy_tpu_torch.Writer(db, 0, DIM)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(200, dtype=np.uint32), x)
+        w.builder(seed=1).n_trees(2).build(wtxn)
+    st = db.read().state(0)
+    cap = st.store.capacity()
+    assert t_writer.build_stats["mirror_rows"] == cap  # the first sync is whole
+    st.store.device_arrays("cpu")
+    want = cap if switch == "0" else 0
+    assert t_items.mirror_rows_uploaded == want
+    with db.write() as wtxn:
+        w.builder(seed=1).n_trees(2).build(wtxn)
+    assert t_writer.build_stats["mirror_rows"] == want

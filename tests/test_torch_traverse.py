@@ -169,9 +169,9 @@ def test_scan_chunk_and_multipop_match_jax(monkeypatch):
         assert t_search._scan_chunk(b) == j_search._scan_chunk(b)
     monkeypatch.delenv("ARROY_MULTIPOP", raising=False)
     for want in ("auto", None, 1, 4):
-        assert t_search.resolve_multipop(want) == j_search.resolve_multipop(M, want)
+        assert t_search.resolve_multipop(M, want) == j_search.resolve_multipop(M, want)
     monkeypatch.setenv("ARROY_MULTIPOP", "3")
-    assert t_search.resolve_multipop("auto") == j_search.resolve_multipop(M, "auto") == 3
+    assert t_search.resolve_multipop(M, "auto") == j_search.resolve_multipop(M, "auto") == 3
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +313,7 @@ def test_filtered_searcher_matches_jax(index, metric):
 
 
 # ---------------------------------------------------------------------------
-# (f) two tiers, (g) the streamed matmul re-score, (h) nns() and multipop
+# (f) two tiers, (g) the streamed matmul re-score, (h) nns()
 # ---------------------------------------------------------------------------
 
 
@@ -381,17 +381,3 @@ def test_nns_traverses_at_any_size(index, monkeypatch):
     assert route == "traversal"
     _assert_same(jr, jr.nns(K).search_k(600).by_vectors(q), tr.nns(K).search_k(600).by_vectors(q),
                  fn, *query_arrays(tr.metric, q))
-
-
-def test_multipop_raises(index, monkeypatch):
-    _, tr, q = index("euclidean")
-    monkeypatch.delenv("ARROY_MULTIPOP", raising=False)
-    kw = dict(search_k=600, engine="forest", traversal="xla")
-    with pytest.raises(NotImplementedError, match="multipop"):
-        tr.searcher(K, multipop=4, **kw)
-    assert tr.searcher(K, multipop=1, **kw).route == "traversal"
-    monkeypatch.setenv("ARROY_MULTIPOP", "4")
-    with pytest.raises(NotImplementedError, match="multipop"):
-        tr.searcher(K, **kw)
-    with pytest.raises(NotImplementedError, match="multipop"):
-        tr.nns(K).search_k(600).by_vectors(q)
