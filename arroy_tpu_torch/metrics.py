@@ -25,6 +25,8 @@ Binary-quantized storage rows are int32 bit patterns on the device
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -379,6 +381,67 @@ def _signs(x: torch.Tensor) -> torch.Tensor:
     return torch.where(_sign_positive(x), 1.0, -1.0)
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32: a true fused multiply-add, as
+    XLA's CPU backend contracts ``a * b + c``.  The operands are f32
+    tensors, or floats that hold f32 values (no tensor is made for them),
+    at least one a tensor.
+
+    The f32 product is exact in f64, but the f64 sum may round, and
+    rounding that again to f32 (double rounding) can miss the fused
+    result by one last bit.  So the sum is rounded to odd: TwoSum gives
+    its rounding error, and an inexact sum whose last bit is even steps
+    one f64 ulp toward the exact value.  A sum rounded to odd in 53 bits
+    rounds to 24 as the exact sum does."""
+    p = _f64(a) * _f64(b)
+    c = _f64(c)
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    step = ((s.view(torch.int64) & 1) == 0) & (err != 0) & torch.isfinite(err)
+    return torch.where(step, torch.nextafter(s, err * math.inf), s).float()
+
+
+def _f64(x):
+    return x.double() if isinstance(x, torch.Tensor) else float(x)
+
+
+#: XLA's CPU backend sums at most this many terms in one loop; a longer
+#: reduction becomes window sums of this many terms, then their sum
+_XLA_WINDOW = 32
+
+
+def _xla_sum(a: torch.Tensor, b: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Sum of ``a`` (of ``a * b`` when ``b`` is given) over the last axis,
+    rounded as the JAX package's compiled two-means rounds it on the CPU:
+    up to `_XLA_WINDOW` terms in index order with one rounding a step (a
+    fused multiply-add for products, `fma32`); past that, the terms
+    (products rounded to f32) summed in index order within windows of
+    `_XLA_WINDOW` (the padding split between both ends), then the window
+    sums the same way.  Held bit for bit against XLA at every width from
+    1 to 4,096 but 5-8 with products, where XLA rounds the products
+    first; the BQ training widths are multiples of 32.
+
+    A BQ plane is the sign pattern of a centroid difference, so the
+    near-ties that decide which centroid moves, and the signs of
+    near-zero centroid components, must come out as the JAX package's;
+    a pairwise sum differs in the last bit."""
+    n = a.shape[-1]
+    if n <= _XLA_WINDOW:
+        acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+        for i in range(n):
+            acc = acc + a[..., i] if b is None else fma32(a[..., i], b[..., i], acc)
+        return acc
+    t = a if b is None else a * b
+    pad = -n % _XLA_WINDOW  # split between both ends, as XLA pads the window
+    t = torch.nn.functional.pad(t, (pad // 2, pad - pad // 2))
+    t = t.reshape(t.shape[:-1] + (-1, _XLA_WINDOW))
+    acc = torch.zeros(t.shape[:-1], dtype=torch.float32, device=a.device)
+    for i in range(_XLA_WINDOW):
+        acc = acc + t[..., i]
+    return _xla_sum(acc)
+
+
 class BinaryQuantizedEuclidean(_BQMetric):
     """XOR-popcount squared L2 (×4), sign-bit hyperplanes."""
 
@@ -392,7 +455,10 @@ class BinaryQuantizedEuclidean(_BQMetric):
     def normalized_distance(cls, d, dims):
         return d / dims
 
-    tm_nonbuilt = Euclidean.tm_nonbuilt
+    @classmethod
+    def tm_nonbuilt(cls, pv, pe, ph, kv, ke, kh):
+        diff = pv - kv
+        return _xla_sum(diff, diff)
 
     @classmethod
     def finalize_split(cls, pv, pe, qv, qe):
@@ -416,7 +482,10 @@ class BinaryQuantizedManhattan(_BQMetric):
     def normalized_distance(cls, d, dims):
         return torch.clamp(d, min=0.0) / dims
 
-    tm_nonbuilt = Manhattan.tm_nonbuilt
+    @classmethod
+    def tm_nonbuilt(cls, pv, pe, ph, kv, ke, kh):
+        return _xla_sum(torch.abs(pv - kv))
+
     finalize_split = BinaryQuantizedEuclidean.finalize_split
 
 
@@ -444,8 +513,19 @@ class BinaryQuantizedCosine(_BQMetric):
     def normalized_distance(cls, d, dims):
         return d
 
-    tm_init = Cosine.tm_init
-    tm_nonbuilt = Cosine.tm_nonbuilt
+    @classmethod
+    def tm_init(cls, v, e):
+        return torch.sqrt(_xla_sum(v, v))
+
+    tm_norm = tm_init
+
+    @classmethod
+    def tm_nonbuilt(cls, pv, pe, ph, kv, ke, kh):
+        pq = _xla_sum(pv, kv)
+        pnqn = ph * kh
+        ok = pnqn > _F32_EPSILON
+        cos = torch.clamp(pq / _safe(pnqn, ok), -1.0, 1.0)
+        return torch.where(ok, (1.0 - cos) / 2.0, torch.zeros_like(cos))
 
     @classmethod
     def finalize_split(cls, pv, pe, qv, qe):

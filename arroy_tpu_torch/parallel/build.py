@@ -27,9 +27,10 @@ are copied (not summed) from their shard, the two-means sees the same
 of one fixed shape (`_entry_margins`), so its reduction order does not
 depend on how many rows a shard holds.  The built forest is therefore
 **bit-identical for any mesh size**.  The hash stream is the JAX
-package's bit for bit (`_mix`, 32-bit words kept in int64 tensors), so,
-given the JAX package's 32-bit ``seed_base``, the forest equals its
-sharded forest up to the last bit of f32 arithmetic.
+package's bit for bit (`_mix`, 32-bit words kept in int64 tensors), and
+its 32-bit ``seed_base`` the JAX package's (the last word of the build
+key), so the forest equals its sharded forest up to the last bit of f32
+arithmetic.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import prng
 from ..builder import _MAX_LEVELS, BuildContext, _two_means_core
 
 _MASK32 = 0xFFFFFFFF
@@ -236,22 +238,20 @@ def _level_step(metric, dims, g, shards, dev0, lens, split, ltab, rtab, ktab, sa
     return normals, aux, lc, none
 
 
-def grow_trees_sharded(ctx: BuildContext, seeds, gen: torch.Generator, mesh, seed_base=None) -> None:
+def grow_trees_sharded(ctx: BuildContext, seeds, key, mesh) -> None:
     """Sharded twin of `builder.grow_trees`: grow every oversized seed's
     subtree into ctx.forest, the per-level compute spread over the mesh.
     Needs the host item mirrors on ctx (``rows_np`` et al).
 
-    The hash stream's 32-bit ``seed_base`` is drawn from ``gen``; a caller
-    may pass it instead (the JAX package's is the last word of
-    ``key_data(fold_in(key, 0xB111D))``)."""
+    The hash stream's 32-bit ``seed_base`` is the last word of the
+    threefry ``key`` (the writer passes ``fold_in(key(seed), 0xB111D)``,
+    as the JAX package's does)."""
     seeds = [(int(nid), np.asarray(slots, np.int64)) for nid, slots in seeds]
     if not seeds:
         return
     if ctx.rows_np is None:
         raise ValueError("the sharded build needs the host item mirrors")
-    if seed_base is None:
-        seed_base = int(torch.randint(0, 1 << 32, (1,), generator=gen, device=gen.device).item())
-    seed_base &= _MASK32
+    seed_base = int(prng.key_data(key)[-1])
 
     n = mesh.devices.size
     s_count = len(seeds)

@@ -21,6 +21,9 @@ reference `Writer`/`ArroyBuilder` (reference: src/writer.rs:37-265):
    (`builder.grow_trees`), within the memory budget when one is given;
 8. metadata + version.
 
+Every random draw of steps 6 and 7 comes from the JAX package's threefry
+keys (`prng`), derived from the seed as its writer derives them, so a
+seed builds the JAX package's forest on any device.
 `ArroyBuilder.mesh` grows step 7 with the per-level compute sharded over
 a `parallel.mesh.Mesh` (`parallel.build.grow_trees_sharded`).
 """
@@ -32,9 +35,9 @@ from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
-import torch
 
-from .builder import BuildContext, grow_trees, route_items, route_lanes
+from . import prng
+from .builder import BuildContext, grow_streams, grow_trees, route_items, route_lanes
 from .errors import InvalidItemAppend
 from .metrics import Metric, resolve_metric
 from .models import items as items_mod
@@ -162,11 +165,16 @@ def _leaves_losing(forest: Forest, to_delete: ItemSet) -> dict[int, np.ndarray]:
     }
 
 
-def _merge_routed(forest: Forest, dest: np.ndarray, ids: np.ndarray) -> dict[int, np.ndarray]:
+def _merge_routed(
+    forest: Forest, dest: np.ndarray, ids: np.ndarray, batch: np.ndarray
+) -> dict[int, np.ndarray]:
     """Each leaf in `dest` → its old ids united with the `ids` routed to it
-    (sorted, unique), leaves ascending.  Keys are leaf rank << 32 | id: the
-    old leaves' keys are one sorted run already, so a stable sort of the
-    two runs is a merge, and one pass drops the duplicates."""
+    (sorted, unique), in the JAX package's order: by the first routing
+    `batch` that reached the leaf, then ascending (it fills its dict batch
+    after batch, and that order is the seeds' order in the grow).  Keys
+    are leaf rank << 32 | id: the old leaves' keys are one sorted run
+    already, so a stable sort of the two runs is a merge, and one pass
+    drops the duplicates."""
     nids = np.unique(dest)
     empty = np.empty(0, np.uint32)
     old = [forest.leaves.get(n, empty) for n in nids.tolist()]
@@ -178,7 +186,10 @@ def _merge_routed(forest: Forest, dest: np.ndarray, ids: np.ndarray) -> dict[int
     keys = keys[np.concatenate([[True], keys[1:] != keys[:-1]])]
     bounds = np.searchsorted(keys, np.append(rank, len(nids) << 32)).tolist()
     ids = (keys & 0xFFFFFFFF).astype(np.uint32)
-    return {n: ids[b:e] for n, b, e in zip(nids.tolist(), bounds[:-1], bounds[1:])}
+    first = np.full(len(nids), len(dest), np.int64)
+    np.minimum.at(first, np.searchsorted(nids, dest), batch)
+    order = np.argsort(first, kind="stable").tolist()
+    return {int(nids[i]): ids[bounds[i] : bounds[i + 1]] for i in order}
 
 
 def _swap_remove0(lst: list) -> object:
@@ -426,7 +437,7 @@ class Writer:
             staging_rows=staged_rows,
             on_items_indexed=sub.add,
         )
-        gen = torch.Generator(device=self.database.device).manual_seed(int(opt.seed))
+        key = prng.key(opt.seed)
 
         # 6. route inserted items down the frozen trees, in budget-sized
         #    batches (reference: src/writer.rs:846-888,1119-1159)
@@ -438,16 +449,21 @@ class Writer:
             normals = ctx.staging_matrix_dev()
             aux_lookup = ctx.staging_aux_np()
             chunk = max(budget_items or len(insert_slots), 1)
-            dests, slots = [], []
-            for off in range(0, len(insert_slots), chunk):
+            dests, slots, batch_of = [], [], []
+            for b, off in enumerate(range(0, len(insert_slots), chunk)):
                 cancelled()
                 part = insert_slots[off : off + chunk]
-                d, s = route_lanes(ctx, normals, aux_lookup, [(r, part) for r in roots], gen)
+                d, s = route_lanes(
+                    ctx, normals, aux_lookup, [(r, part) for r in roots],
+                    prng.fold_in(key, 0x0F0F + off),
+                )
                 dests.append(d)
                 slots.append(s)
+                batch_of.append(np.full(len(d), b, np.int64))
             routed_lanes = int(sum(len(d) for d in dests))
             descendants = _merge_routed(
-                forest, np.concatenate(dests), ctx.slot_to_id[np.concatenate(slots)]
+                forest, np.concatenate(dests), ctx.slot_to_id[np.concatenate(slots)],
+                np.concatenate(batch_of),
             )
 
         # 7. missing trees (reference: src/writer.rs:545-561)
@@ -474,9 +490,9 @@ class Writer:
         if mesh_mode:
             from .parallel.build import grow_trees_sharded
 
-            grow_trees_sharded(ctx, seeds, gen, opt.mesh)
+            grow_trees_sharded(ctx, seeds, prng.fold_in(key, 0xB111D), opt.mesh)
         else:
-            self._grow_with_budget(ctx, seeds, gen)
+            self._grow_with_budget(ctx, seeds, prng.fold_in(key, 0xB111D))
 
         # 8. metadata + version (reference: src/writer.rs:609-628)
         opt.progress(WriterProgress(MainStep.WRITE_THE_METADATA))
@@ -497,16 +513,22 @@ class Writer:
         )
 
     # ------------------------------------------------------------------
-    def _grow_with_budget(self, ctx: BuildContext, seeds, gen: torch.Generator) -> None:
-        """Grow the oversized descendants, within the memory budget.
+    def _grow_with_budget(self, ctx: BuildContext, seeds, key) -> None:
+        """Grow the oversized descendants, within the memory budget, from
+        the threefry ``key`` as the JAX package's writer does.
 
         Without a budget, the seeds grow in groups, each bounded by three
-        caps on its frontier: splits, items, and lanes × storage width.
-        With one, each seed grows a skeleton from a sampled batch, routes
-        the rest of its items through it in batches, and pushes every leaf
-        that overflows back onto the stack: the reference's
-        `fit_in_memory` + `incremental_index_large_descendant`
-        (src/writer.rs:660-739,1536-1584)."""
+        caps on its frontier: splits, items, and lanes × storage width;
+        group 0 draws from ``key`` and group ``gi`` from
+        ``fold_in(key, 0x6B0 + gi)``.  With one, each node popped from a
+        stack grows a skeleton from a sampled batch, routes the rest of
+        its items through it in batches, and pushes every leaf that
+        overflows back onto the stack: the reference's `fit_in_memory` +
+        `incremental_index_large_descendant`
+        (src/writer.rs:660-739,1536-1584).  A node that fits one batch
+        grows whole from ``fold_in(fold_in(key, node), attempt)``; a run
+        of such nodes grows in one `grow_streams` pass, which allocates
+        node ids as the JAX package's one-by-one grows do."""
         if not seeds:
             return
         if ctx.budget_items is None:
@@ -526,13 +548,12 @@ class Writer:
                     total = 0
                 groups[-1].append((nid, slots))
                 total += len(slots)
-            for group in groups:
+            for gi, group in enumerate(groups):
                 ctx.check_cancel()
-                grow_trees(ctx, group, gen)
+                grow_trees(ctx, group, key if gi == 0 else prng.fold_in(key, 0x6B0 + gi))
             return
 
-        seed = torch.randint(0, 2**62, (1,), generator=gen, device=gen.device)
-        rng = np.random.default_rng(int(seed.item()))
+        rng = np.random.default_rng(prng.key_data(key))
         stack = list(seeds)
         #: regrowth attempts per node: a sampled skeleton can fail to shrink
         #: a pathological node (all-duplicate vectors); after _MAX_REGROW
@@ -542,8 +563,8 @@ class Writer:
         #: the sampled skeleton batch must itself be splittable, or the
         #: routed remainder collapses back onto its node forever
         cap = max(ctx.budget_items, ctx.dims + 1, ctx.split_after + 1)
-        #: nodes that fit one batch grow whole, together, a batch at a time
-        whole: list[tuple[int, np.ndarray]] = []
+        #: the run of nodes that fit one batch, grown together a batch at a time
+        whole: list[tuple[np.ndarray, list]] = []
         whole_n = 0
         while stack:
             ctx.check_cancel()
@@ -558,23 +579,28 @@ class Writer:
                 if len(slots) > ctx.split_after:
                     ctx.valve_items += len(slots)
                 continue
+            grow_key = prng.fold_in(prng.fold_in(key, nid), att)
+            if whole and (len(slots) > cap or whole_n + len(slots) > cap):
+                grow_streams(ctx, whole)
+                whole, whole_n = [], 0
             if len(slots) <= cap:
-                if whole and whole_n + len(slots) > cap:
-                    grow_trees(ctx, whole, gen)
-                    whole, whole_n = [], 0
-                whole.append((nid, slots))
+                whole.append((grow_key, [(nid, slots)]))
                 whole_n += len(slots)
                 continue
             mask = np.zeros(len(slots), bool)
             mask[rng.choice(len(slots), size=cap, replace=False)] = True
             batch, rest = slots[mask], slots[~mask]
-            grow_trees(ctx, [(nid, batch)], gen)
-            # route the remainder through the fresh skeleton in budget batches
+            grow_trees(ctx, [(nid, batch)], grow_key)
+            # route the remainder through the fresh skeleton in budget
+            # batches, each keyed by the offset just past it
             normals = ctx.staging_matrix_dev()
             aux_lookup = ctx.staging_aux_np()
             routed_all: dict[int, list[np.ndarray]] = {}
             for off in range(0, len(rest), cap):
-                routed = route_items(ctx, normals, aux_lookup, [(nid, rest[off : off + cap])], gen)
+                routed = route_items(
+                    ctx, normals, aux_lookup, [(nid, rest[off : off + cap])],
+                    prng.fold_in(key, nid * 31 + off + cap),
+                )
                 for lid, ls in routed.items():
                     routed_all.setdefault(lid, []).extend(ls)
             for lid, slot_lists in routed_all.items():
@@ -588,7 +614,7 @@ class Writer:
                 else:
                     stack.append((lid, merged))
         if whole:
-            grow_trees(ctx, whole, gen)
+            grow_streams(ctx, whole)
 
     @staticmethod
     def _delete_items_in_tree(

@@ -62,8 +62,8 @@ exits non-zero:
    1,001,472) and one batch's queries; the BQ scan (kernel 2 once a
    chunk) streams and equals the matrix on sub-batches of 256, and
    kernel 2 is held against its plain version on the ragged last chunk
-   view, and timed on a full chunk beside its plain version and the ±1
-   int8 GEMM.  It prints ms a batch, qps and peak device memory per
+   view, and timed on a full chunk beside its plain version, the ±1
+   int8 GEMM and `torch.cdist(p=0)` over the unpacked bits.  It prints ms a batch, qps and peak device memory per
    route, the build times and its wall time;
 9. incremental build — phase 8's euclidean index, kept: the device
    mirror's two sync paths (patch, full upload) timed at 1-100% dirty
@@ -115,7 +115,18 @@ exits non-zero:
    same rows on 4 shards and on 1: equal node for node, valid, traversal
    recall@10 at search_k 8000 within 0.02 of a resident build, the three
    build times, then a 1% update built on the mesh; (d)
-   `entry.dryrun_multichip(4)`.
+   `entry.dryrun_multichip(4)`;
+12. one threefry stream on every device (`arroy_tpu_torch.prng`): (a)
+   the twelve committed goldens of `tests/snapshots/` built on the card
+   (`tests/torch_golden.py`; the mesh one at 8 shards and at 1), byte
+   for byte; (b) every primitive on 2^20 counters, bit-equal between the
+   card and the CPU; (c) 32,768 x 768, 10 trees (327,680 lanes, past the
+   JAX grow's lane compaction) built on the card and on the CPU from one
+   seed: the 10 root splits equal (left counts, normals within 1e-5), the
+   compactions the same, and how many trees are equal node for node, with
+   each other tree's first differing node and its smallest |margin|.
+   Phases 8, 9 and 11 (c) build with the same stream.  It launches no
+   kernel.
 
 Kernel launch counts are reset right before each main path (phases 4-5,
 phase 6, phase 8, phase 9, phase 10, and each part of phase 11: (a)
@@ -1204,12 +1215,17 @@ def large_slice(rec):
     qi, xi = (unpack_bits(t, D).to(torch.int8) for t in (qw, full))
     assert torch.equal(torch._int_mm(qi, xi.t()), D - 2 * h), "±1 int8 GEMM differs"
     r2["chunk_gemm_ms"] = cuda_ms(lambda: torch._int_mm(qi, xi.t()), 10)
+    # the one library call for the same counts, as in phase 3: cdist with
+    # p=0 over the unpacked 0/1 bits (a 2 GiB f32 [B, chunk] result)
+    qz, xz = (qi > 0).float(), (xi > 0).float()
+    assert torch.equal(torch.cdist(qz, xz, p=0), h.float()), "cdist(p=0) differs from the counts"
+    r2["chunk_library_ms"] = cuda_ms(lambda: torch.cdist(qz, xz, p=0), 2)
     say("kernel2", f"bq_hamming on chunk views of the 1M corpus: bit-equal on the last "
         f"({last.shape[0]} rows, {last.data_ptr() % 16} bytes past 16-byte alignment); "
         f"B={BATCH} x {chunk} rows, w={words.shape[1]}: {r2['chunk_ms']:.4f} ms, bound "
         f"{r2['chunk_bound_ms']:.4f} ms (bytes), plain {r2['chunk_plain_ms']:.2f} ms, ±1 int8 "
-        f"GEMM {r2['chunk_gemm_ms']:.4f} ms")
-    del r, s, qw, words, last, full, h, qi, xi
+        f"GEMM {r2['chunk_gemm_ms']:.4f} ms, torch.cdist(p=0) {r2['chunk_library_ms']:.2f} ms")
+    del r, s, qw, words, last, full, h, qi, xi, qz, xz
     items._DEVICE_MIRROR.clear()
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
@@ -2002,6 +2018,166 @@ def multidevice_slice(rec):
     return total
 
 
+#: phase 12: counters for the primitives' parity, and a build whose lane
+#: frame (32,768 x 768 x 10 trees = 327,680 lanes, padded to 2^19) is twice
+#: the JAX grow's 2^18 compaction floor, so its lane compaction fires
+PRNG_COUNTERS, M_STREAM = 1 << 20, 32_768
+
+
+def prng_draws(dev):
+    """Every `prng` primitive on `PRNG_COUNTERS` counters on `dev`: one key
+    a counter (fold_in of a build key), its split, its bits, randint of
+    shape () at spans 1 to 70,000 (across 2^16) and of shape (10,), the
+    coins and a uniform draw of one key over every counter."""
+    import torch
+
+    from arroy_tpu_torch import prng
+
+    n = PRNG_COUNTERS
+    c = torch.arange(n, dtype=torch.int64, device=dev) * 2654435761 % (1 << 32)
+    base = prng.as_tensor(prng.fold_in(prng.key(42), 0xB111D), dev)
+    keys = prng.fold_in(base[None, :].expand(n, 2), c)
+    spans = c % 70_000 + 1
+    return {
+        "fold_in": keys,
+        "split": prng.split(keys),
+        "bits": prng.bits_at(keys, c),
+        "randint": prng.randint(keys, (), 0, spans),
+        "randint10": prng.randint(keys[:65_536], (10,), 0, spans[:65_536]),
+        "bernoulli": prng.bernoulli_at(keys, c),
+        "uniform": prng.uniform(base, (n,)).view(torch.int32),
+    }
+
+
+def first_difference(fa, fb, ra, rb, x):
+    """Walk one tree of each forest together from roots ``ra`` / ``rb``:
+    None if equal node for node (kinds, leaves, the items each split
+    sends left, normals within 1e-5), else the first differing node
+    (breadth first) with its depth, items, left counts and its items'
+    smallest |margin| against each plane (float64 on the host)."""
+    from arroy_tpu_torch.models.forest import KIND_LEAF, KIND_SPLIT
+
+    queue = [(int(ra), int(rb), 0)]
+    while queue:
+        a, b, depth = queue.pop(0)
+        ka, kb = int(fa.kind[a]), int(fb.kind[b])
+        items = fa.subtree_items(a)
+        if ka != kb or (ka == KIND_LEAF and not np.array_equal(fa.leaves[a], fb.leaves[b])):
+            return {"depth": depth, "items": len(items), "kinds": [ka, kb]}
+        if ka == KIND_LEAF:
+            continue
+        la, lb = fa.subtree_items(int(fa.left[a])), fb.subtree_items(int(fb.left[b]))
+        same_plane = True
+        if ka == KIND_SPLIT:
+            na, nb = fa.normals[fa.ptr[a]], fb.normals[fb.ptr[b]]
+            same_plane = bool(np.allclose(na, nb, rtol=1e-5, atol=1e-5)) and bool(
+                np.isclose(fa.aux[fa.ptr[a]], fb.aux[fb.ptr[b]], rtol=1e-5, atol=1e-5))
+        if not same_plane or not np.array_equal(la, lb):
+            out = {"depth": depth, "items": len(items), "left": [len(la), len(lb)],
+                   "plane_within_1e-5": same_plane}
+            if ka == KIND_SPLIT:
+                v = x[items].astype(np.float64)
+                for tag, f, n in (("cpu", fa, a), ("card", fb, b)):
+                    m = v @ f.normals[f.ptr[n]].astype(np.float64) + float(f.aux[f.ptr[n]])
+                    out[f"min_abs_margin_{tag}"] = float(np.abs(m).min())
+            return out
+        queue += [(int(fa.left[a]), int(fb.left[b]), depth + 1),
+                  (int(fa.right[a]), int(fb.right[b]), depth + 1)]
+    return None
+
+
+def stream_slice():
+    """Phase 12: one threefry stream on every device.  (a) the twelve
+    committed goldens built on the card; (b) the primitives on 2^20
+    counters, bit-equal between the card and the CPU; (c) 32,768 x 768,
+    10 trees (327,680 lanes: the JAX grow compacts its lane frame here)
+    built on the card and on the CPU from one seed: the root splits
+    equal, and how many trees are equal node for node."""
+    import torch
+
+    from arroy_tpu_torch import Database, Writer, builder
+    from tests import torch_golden
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the goldens, built on the card
+    t0 = time.perf_counter()
+    scen = dict(torch_golden.scenarios())
+    scen["golden_mesh.txt (1 shard)"] = lambda dev: torch_golden.mesh_golden(dev, shards=1)
+    bad = [n for n, fn in scen.items()
+           if fn("cuda") != torch_golden.snapshot(n.split(" ")[0])]
+    out["goldens_equal"] = len(scen) - len(bad)
+    out["goldens_s"] = time.perf_counter() - t0
+    say("stream", f"(a) {len(scen) - len(bad)} of {len(scen)} golden builds on the card print "
+        f"the committed snapshots byte for byte ({out['goldens_s']:.1f} s){'; differ: ' if bad else ''}"
+        f"{', '.join(bad)}")
+    assert not bad, f"goldens differ on the card: {bad}"
+
+    # (b) the primitives, bit-equal on both devices
+    t0 = time.perf_counter()
+    card = prng_draws("cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = prng_draws("cpu")
+    differ = {k: int((card[k].cpu() != host[k]).sum()) for k in host}
+    out["prng_differ"] = differ
+    say("stream", f"(b) prng on {PRNG_COUNTERS} counters: cuda vs cpu differing values "
+        f"{json.dumps(differ)} (card {card_s:.3f} s for all seven)")
+    assert not any(differ.values()), differ
+    del card, host
+
+    # (c) past the compaction threshold, on both devices from one seed
+    x = card_corpus(M_STREAM, D, 7)
+    compactions = []
+    compact = builder._Frame.compact
+
+    def counted(self, active, n_active):
+        compactions[-1].append(active)
+        return compact(self, active, n_active)
+
+    builder._Frame.compact = counted
+    forests, secs = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            compactions.append([])
+            db = Database(None, device=dev)
+            w = Writer(db, 0, D)
+            with db.write() as wtxn:
+                w.add_items(wtxn, np.arange(M_STREAM, dtype=np.uint32), x)
+                t0 = time.perf_counter()
+                w.builder(seed=42).n_trees(N_TREES).build(wtxn)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                secs[dev] = time.perf_counter() - t0
+            forests[dev] = db.read().state(0).forest
+            del db, w
+    finally:
+        builder._Frame.compact = compact
+    fc, fg = forests["cpu"], forests["cuda"]
+    assert list(fc.roots) == list(fg.roots)
+    roots_equal, trees = 0, []
+    for rc, rg in zip(fc.roots, fg.roots):
+        lc, lg = fc.subtree_items(int(fc.left[rc])), fg.subtree_items(int(fg.left[rg]))
+        close = np.allclose(fc.normals[fc.ptr[rc]], fg.normals[fg.ptr[rg]], rtol=1e-5, atol=1e-5)
+        roots_equal += int(np.array_equal(lc, lg) and close)
+        trees.append(first_difference(fc, fg, rc, rg, x))
+    out.update(build_s=secs, compactions=compactions, roots_equal=roots_equal,
+               trees_equal=sum(t is None for t in trees),
+               first_differences=[t for t in trees if t is not None])
+    say("stream", f"(c) {M_STREAM} x {D}, {N_TREES} trees ({M_STREAM * N_TREES} lanes): built in "
+        f"{secs['cuda']:.2f} s on the card, {secs['cpu']:.2f} s on the CPU; lane compactions "
+        f"(active lanes) card {compactions[0]}, cpu {compactions[1]}; root splits equal "
+        f"{roots_equal} of {N_TREES}; trees equal node for node {out['trees_equal']} of {N_TREES}")
+    for i, t in enumerate(trees):
+        if t is not None:
+            say("stream", f"(c) tree {i}: first differing node {json.dumps(t)}")
+    assert compactions[0] == compactions[1] and compactions[0], compactions
+    assert roots_equal == N_TREES, f"root splits differ: {roots_equal} of {N_TREES} equal"
+    out["phase12_s"] = time.perf_counter() - t_phase
+    say("stream", json.dumps(out))
+    say("time", f"phase 12 took {out['phase12_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2139,6 +2315,16 @@ def main() -> int:
     for name in rec:
         rec[name]["phase11_launches"] = p11[name]
     say("time", f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 12. one threefry stream on every device (no kernel of its own: the
+    # draws and the grow are plain PyTorch, so no count moves)
+    with uncounted(*counters):
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        stream_slice()
+        say("launches", f"stream path: {json.dumps({k: v for c in counters for k, v in c.items()})}")
+    say("time", f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its main path"
         rec[name]["launches"] = n

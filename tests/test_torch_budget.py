@@ -4,9 +4,9 @@ The mirror tests are `tests/test_incremental.py`'s three, on the port's
 `ItemStore.device_arrays`, with the rows each sync uploads read from
 `models.items.mirror_rows_uploaded`.  The budget tests hold the
 streaming build by its invariants, by the JAX package's budget scenario
-(`tests/test_golden.build_budget_golden`, as a scenario and not by its
-bytes: the grows draw from different generators) and by recall against
-a resident build of the same corpus.
+(`tests/test_golden.build_budget_golden`, whose committed snapshot the
+port's build prints byte for byte: both draw the same threefry stream)
+and by recall against a resident build of the same corpus.
 """
 
 import numpy as np
@@ -20,6 +20,7 @@ from arroy_tpu_torch.models.forest import KIND_LEAF, Forest, NodeIdAllocator
 from arroy_tpu_torch.models.items import ItemStore
 
 from . import torch_util  # noqa: F401  (single-threaded torch)
+from .torch_golden import dump_index, snapshot
 from .torch_util import recall
 from .util import random_vectors
 
@@ -215,7 +216,8 @@ def test_budget_build_streams_below_the_corpus(metric):
 def test_budget_golden_scenario():
     """`build_budget_golden`'s scenario (96 items, 2 trees, 32 items of
     budget) and `available_memory(0)`, whose floor is dims + 1 items, as
-    the JAX package runs them: both stream and keep the invariants."""
+    the JAX package runs them: both stream and keep the invariants, and
+    the first prints the committed snapshot."""
     x = random_vectors(96, 8, seed=31)
     for memory, items in ((32 * 8 * 4, 28), (0, 9)):
         _, _, r = _build(x, 2, memory=memory, seed=64)
@@ -223,6 +225,8 @@ def test_budget_golden_scenario():
         assert t_writer.build_stats["budget_items"] == items
         assert r.n_items() == 96
         _invariants(r, 2, 8)
+        if items == 28:
+            assert dump_index(r) == snapshot("golden_budget.txt")
 
 
 def test_budget_recall_near_resident():

@@ -1,11 +1,12 @@
 """The port's forest builder, held by invariants.
 
-The port draws its randomness from a `torch.Generator`, so its forests
-differ from the JAX package's threefry streams (the byte-equal goldens in
-`tests/snapshots/` are not its target).  Every forest must instead pass
+The port draws the JAX package's threefry stream, so its forests equal
+the JAX package's from the same seed on any device (the byte-equal
+goldens in `tests/snapshots/` and the parity of
+`tests/test_torch_golden.py` hold that).  Every forest must also pass
 both packages' `assert_validity`, keep every leaf within `split_after`,
 have the requested tree count and finite normals, and repeat exactly for
-the same seed on the same device.
+the same seed.
 """
 
 import numpy as np

@@ -28,6 +28,7 @@ from arroy_tpu_torch.ops import bq_kernels, fused_select
 from arroy_tpu_torch.ops import gather_score as gs
 from arroy_tpu_torch.ops.fused_select import DEAD_KEY_MAX, fused_block_select
 
+from . import torch_golden
 from .torch_util import recall, require_cuda, tie_aware_equal, to_torch
 
 pytestmark = pytest.mark.gpu
@@ -669,9 +670,9 @@ def test_cuda_delete_only_build_matches_cpu(tmp_path):
 def test_cuda_route_items_matches_cpu(metric):
     """`route_items` on the card lands every lane where the CPU does, but
     for lanes whose path meets a margin under the sums' rounding (the two
-    devices sum in other orders), which must be few, or a split without a
-    normal (a coin from each device's own generator); both are counted."""
-    from arroy_tpu_torch import builder
+    devices sum in other orders), which must be few; a split without a
+    normal takes the same threefry coin on both devices."""
+    from arroy_tpu_torch import builder, prng
     from arroy_tpu_torch.models.forest import KIND_LEAF, KIND_SPLIT, KIND_SPLIT_NONE, NodeIdAllocator
 
     dev = require_cuda()
@@ -697,9 +698,8 @@ def test_cuda_route_items_matches_cpu(metric):
                 alloc=NodeIdAllocator(f.used_node_ids()), staging_normals=[f.normals],
                 staging_aux=[np.asarray(f.aux, np.float32)], staging_rows=len(f.aux),
             )
-            gen = torch.Generator(device=device).manual_seed(0)
             out = builder.route_items(ctx, ctx.staging_matrix_dev(), ctx.staging_aux_np(),
-                                      [(r, slots) for r in f.roots], gen)
+                                      [(r, slots) for r in f.roots], prng.key(0))
             leaf = {}
             for nid, ls in out.items():
                 assert f.kind[nid] == KIND_LEAF
@@ -710,20 +710,26 @@ def test_cuda_route_items_matches_cpu(metric):
     cpu, card = routed
     assert sorted(cpu) == sorted(card) == sorted(slots.tolist())
     differ = [s_ for s_ in cpu if cpu[s_] != card[s_]]
-    # walk each differing lane's CPU path in every tree: it must meet a coin
-    # or a split whose |margin| is within 1e-5 of the sum of its terms'
-    # magnitudes (binary metrics: exact integer sums, so only coins)
+    # walk each differing lane's CPU path in every tree: it must meet a
+    # split whose |margin| is within 1e-5 of the sum of its terms'
+    # magnitudes (binary metrics: exact integer sums, so none may differ)
     rows, _, extras = st.store.device_arrays("cpu")
     normals = torch.from_numpy(f.normals.view(np.int32) if st.metric.binary else f.normals)
-    why = {"coin": 0, "near": 0, "none": 0}
+    why = {"near": 0, "none": 0}
     for s_ in differ:
         seen = set()
         for root in f.roots:
             nid = root
             while f.kind[nid] != KIND_LEAF:
-                if f.kind[nid] == KIND_SPLIT_NONE:
-                    seen.add("coin")
-                    break
+                if f.kind[nid] == KIND_SPLIT_NONE:  # the side the CPU's coin took
+                    under, stack = set(), [int(f.left[nid])]
+                    while stack:
+                        u = stack.pop()
+                        under.add(u)
+                        if f.kind[u] != KIND_LEAF:
+                            stack += [int(f.left[u]), int(f.right[u])]
+                    nid = int(f.left[nid]) if under & set(cpu[s_]) else int(f.right[nid])
+                    continue
                 n, a_ = normals[f.ptr[nid]], float(f.aux[f.ptr[nid]])
                 v = rows[s_]
                 qf = float(extras[s_]) if st.metric.has_extra else 1.0
@@ -732,7 +738,7 @@ def test_cuda_route_items_matches_cpu(metric):
                     if abs(m) <= 1e-5 * (float((n.abs() * v.abs()).sum()) + abs(a_ * qf)):
                         seen.add("near")
                 nid = int(f.left[nid]) if np.signbit(m) else int(f.right[nid])
-        why["coin" if "coin" in seen else "near" if "near" in seen else "none"] += 1
+        why["near" if "near" in seen else "none"] += 1
     assert why["none"] == 0, f"{len(differ)} lanes differ: {why}"
     assert why["near"] <= 0.01 * len(slots), why
 
@@ -929,3 +935,28 @@ def _result_arrays_of(results):
     ids = np.array([[i for i, _ in row] for row in results])
     d = np.array([[v for _, v in row] for row in results])
     return ids, d
+
+
+@pytest.mark.parametrize("name", sorted(torch_golden.scenarios()))
+def test_cuda_builds_print_the_goldens(name):
+    """The committed goldens, built on the card: the same threefry stream,
+    the same bytes as on the CPU."""
+    dev = require_cuda()
+    assert torch_golden.scenarios()[name](dev) == torch_golden.snapshot(name)
+
+
+def test_cuda_prng_matches_cpu():
+    """Every `prng` primitive bit-equal on the card and on the CPU."""
+    from arroy_tpu_torch import prng
+
+    dev = require_cuda()
+
+    def draws(d):
+        c = torch.arange(1 << 18, dtype=torch.int64, device=d) * 2654435761 % (1 << 32)
+        keys = prng.fold_in(prng.as_tensor(prng.key(9), d)[None, :].expand(len(c), 2), c)
+        return [keys, prng.split(keys), prng.bits_at(keys, c),
+                prng.randint(keys, (), 0, c % 70_000 + 1), prng.bernoulli_at(keys, c),
+                prng.uniform(keys[0], (1 << 18,)).view(torch.int32)]
+
+    for a, b in zip(draws(dev), draws("cpu")):
+        assert torch.equal(a.cpu(), b)

@@ -2,13 +2,12 @@
 
 Each metric's base index is built once with the JAX package and written
 to disk; every test copies that directory twice, makes the same change
-through each package's `Writer` and rebuilds.  Where no random draw is
-involved (the delete pass with its collapse, routing through planes that
-all have a normal, leaves put back in place) the two forests must be
-equal node for node, as `tests/test_golden.dump_index` prints them.
-Where leaves overflow and regrow, the port's grow draws from its own
-`torch.Generator`, so only the seeds (node ids and item sets) and every
-node outside the regrown subtrees must be equal.
+through each package's `Writer` and rebuilds.  Both packages draw the
+same threefry stream, so the two forests must be equal node for node,
+as `tests/test_golden.dump_index` prints them: after the delete pass
+with its collapse, routing through planes that all have a normal, leaves
+put back in place, and also where leaves overflow and regrow (the seeds,
+node ids and item sets, are checked on their own too).
 
 The second half ports `tests/test_incremental.py`'s cases to the port
 alone (its own forests, invariants and search results).
@@ -25,11 +24,14 @@ import torch
 import arroy_tpu
 import arroy_tpu_torch
 from arroy_tpu import builder as j_builder
+from arroy_tpu.metrics import resolve_metric as j_resolve_metric
+from arroy_tpu.models.forest import Forest as JForest
 from arroy_tpu.models.forest import NodeIdAllocator as JNodeIdAllocator
-from arroy_tpu_torch import NeedBuild, Reader, Writer, builder as t_builder, writer as t_writer
+from arroy_tpu_torch import NeedBuild, Reader, Writer, builder as t_builder, prng, writer as t_writer
 from arroy_tpu_torch.models.forest import KIND_LEAF, KIND_SPLIT, KIND_SPLIT_NONE, NodeIdAllocator
 
 from . import torch_util  # noqa: F401  (single-threaded torch)
+from .torch_util import assert_forests_equal
 from .test_golden import _snap_path, dump_index
 from .util import random_vectors
 
@@ -198,9 +200,9 @@ def test_route_items_matches_jax(tmp_path, base, metric, monkeypatch):
             jctx, jnp.asarray(jst.forest.normals), jst.forest.aux, entries, jax.random.key(0)
         )
     )
-    gen = torch.Generator().manual_seed(0)
+    key = prng.key(0)
     got = _as_sets(
-        t_builder.route_items(tctx, tctx.staging_matrix_dev(), tctx.staging_aux_np(), entries, gen)
+        t_builder.route_items(tctx, tctx.staging_matrix_dev(), tctx.staging_aux_np(), entries, key)
     )
     assert got == want
     assert all(f.kind[nid] == KIND_LEAF for nid in got)
@@ -208,14 +210,15 @@ def test_route_items_matches_jax(tmp_path, base, metric, monkeypatch):
     # small chunks land every lane where one chunk does
     monkeypatch.setattr(t_builder, "_ROUTE_CHUNK", 97)
     small = _as_sets(
-        t_builder.route_items(tctx, tctx.staging_matrix_dev(), tctx.staging_aux_np(), entries, gen)
+        t_builder.route_items(tctx, tctx.staging_matrix_dev(), tctx.staging_aux_np(), entries, key)
     )
     assert small == got
 
 
 def test_route_items_draws_coins_at_normal_less_splits():
     """A split without a normal sends each lane to a side from the build's
-    generator: both sides are taken, and the same seed repeats them."""
+    threefry key: both sides are taken, the same seed repeats them, and
+    each lane takes the JAX package's side."""
     from arroy_tpu_torch.metrics import resolve_metric
     from arroy_tpu_torch.models.forest import Forest
 
@@ -232,15 +235,26 @@ def test_route_items_draws_coins_at_normal_less_splits():
     )
 
     def run(seed):
-        gen = torch.Generator().manual_seed(seed)
         return _as_sets(
             t_builder.route_items(ctx, ctx.staging_matrix_dev(), ctx.staging_aux_np(),
-                                  [(0, np.arange(64))], gen)
+                                  [(0, np.arange(64))], prng.key(seed))
         )
 
     got = run(3)
     assert sorted(got) == [1, 2] and sum(len(v) for v in got.values()) == 64
     assert run(3) == got and run(4) != got
+    jf = JForest()
+    jf.put_split(0, 1, 2, None)
+    jf.put_leaf(1, np.arange(0, 2, dtype=np.uint32))
+    jf.put_leaf(2, np.arange(2, 4, dtype=np.uint32))
+    jctx = j_builder.BuildContext(
+        metric=j_resolve_metric("euclidean"), dims=DIM, split_after=DIM,
+        rows_dev=jnp.zeros((64, DIM)), extras_dev=jnp.zeros(64), hnorms_dev=jnp.zeros(64),
+        slot_to_id=np.arange(64), forest=jf, alloc=JNodeIdAllocator(jf.used_node_ids()),
+    )
+    want = j_builder.route_items(jctx, jnp.zeros((1, DIM)), np.zeros(1, np.float32),
+                                 [(0, np.arange(64))], jax.random.key(3))
+    assert got == _as_sets(want)
 
 
 def test_insert_without_overflow_matches_jax(tmp_path, base):
@@ -303,7 +317,9 @@ def _node_record(f, nid):
 def test_regrowth_seeds_match_jax(tmp_path, base, monkeypatch):
     """Add + overwrite + delete, with leaves that overflow: both packages
     regrow the same seeds (node ids and item sets); every node outside
-    the regrown subtrees is equal; the port's forest keeps the invariants."""
+    the regrown subtrees is equal, and the regrown subtrees are too, node
+    for node (the grows draw the same threefry stream); the port's forest
+    keeps the invariants."""
     jdb, tdb = _both(base("euclidean"), tmp_path)
     seeds = {}
 
@@ -340,6 +356,8 @@ def test_regrowth_seeds_match_jax(tmp_path, base, monkeypatch):
     for nid in sorted(outside):
         assert _node_record(tf, nid) == _node_record(jf, nid), nid
     assert tf.roots == jf.roots
+    assert regrown_t == regrown_j
+    assert_forests_equal(tf, jf)
     tr.assert_validity()
     _leaf_sizes_ok(tr, DIM)
     assert tr.n_items() == N + 40 - 10

@@ -3,12 +3,12 @@
 `tests/test_sharded_build.py`'s four tests on the port: one forest
 grown with the per-level compute sharded over a mesh must be valid,
 bit-identical for any mesh size (1 and 8 shards, 4 metrics), serve at
-normal recall and take incremental updates.  Then parity: given the JAX
-package's 32-bit ``seed_base`` (the last word of
-``key_data(fold_in(key(seed), 0xB111D))``), the port's mesh build equals
-the JAX package's node for node (kinds, children, plane rows, leaves,
-roots bit-equal; split planes to rtol 1e-5 with a 1e-6 absolute floor,
-f32 arithmetic in another order).
+normal recall and take incremental updates.  Then parity: the port's
+mesh build takes the JAX package's 32-bit ``seed_base`` (the last word
+of ``key_data(fold_in(key(seed), 0xB111D))``) from its own threefry key
+and equals the JAX package's node for node (kinds, children, plane rows,
+leaves, roots bit-equal; split planes to rtol 1e-5 with a 1e-6 absolute
+floor, f32 arithmetic in another order).
 """
 
 import jax
@@ -17,9 +17,8 @@ import pytest
 
 import arroy_tpu
 from arroy_tpu.parallel.mesh import make_mesh as j_make_mesh
-from arroy_tpu_torch import Database, Reader, Writer
+from arroy_tpu_torch import Database, Reader, Writer, prng
 from arroy_tpu_torch import writer as t_writer
-from arroy_tpu_torch.parallel import build as t_build
 from arroy_tpu_torch.parallel.mesh import make_mesh
 
 from . import torch_util  # noqa: F401  (single-threaded torch)
@@ -106,15 +105,12 @@ def test_sharded_build_then_incremental_update():
 
 
 @pytest.mark.parametrize("metric", METRICS)
-def test_sharded_build_matches_jax(monkeypatch, metric):
-    """`grow_trees_sharded` given the JAX package's seed_base grows the JAX
-    package's sharded forest, 8 shards each."""
+def test_sharded_build_matches_jax(metric):
+    """`grow_trees_sharded` draws the JAX package's seed_base from the
+    build's key and grows the JAX package's sharded forest, 8 shards each."""
     seed = 42
     kd = np.asarray(jax.random.key_data(jax.random.fold_in(jax.random.key(seed), 0xB111D)))
-    seed_base = int(kd.ravel()[-1]) & 0xFFFFFFFF
-    grow = t_build.grow_trees_sharded
-    monkeypatch.setattr(t_build, "grow_trees_sharded",
-                        lambda ctx, seeds, gen, mesh: grow(ctx, seeds, gen, mesh, seed_base=seed_base))
+    assert int(prng.key_data(prng.fold_in(prng.key(seed), 0xB111D))[-1]) == int(kd.ravel()[-1])
     x = random_vectors(600, 16, seed=5)
     fj = _build(x, j_make_mesh(8), metric, 2, 8, seed, pkg=arroy_tpu).read().state(0).forest
     ft = _build(x, make_mesh(8, device="cpu"), metric, 2, 8, seed).read().state(0).forest

@@ -61,3 +61,23 @@ def tie_aware_equal(ids_a, d_a, ids_b, d_b, rtol=1e-6, atol=0.0):
 def recall(got_ids: np.ndarray, ref_ids: np.ndarray) -> float:
     hits = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got_ids, ref_ids))
     return hits / max(np.asarray(ref_ids).size, 1)
+
+
+def assert_forests_equal(fa, fb, rtol=1e-5, atol=1e-6):
+    """Two forests node for node: node ids, kinds, children, plane rows,
+    leaves and roots bit-equal; split planes and offsets equal to ``rtol`` (``atol``
+    its floor), since f32 arithmetic in another order differs in the last
+    bits; packed BQ planes bit-equal."""
+    used = np.asarray(sorted(int(i) for i in fa.used_node_ids()), np.int64)
+    np.testing.assert_array_equal(used, sorted(int(i) for i in fb.used_node_ids()))
+    for key in ("kind", "left", "right", "ptr"):
+        np.testing.assert_array_equal(getattr(fa, key)[used], getattr(fb, key)[used], err_msg=key)
+    if np.issubdtype(np.asarray(fa.normals).dtype, np.integer):
+        np.testing.assert_array_equal(fa.normals, fb.normals)
+    else:
+        np.testing.assert_allclose(fa.normals, fb.normals, rtol=rtol, atol=atol)
+    np.testing.assert_allclose(fa.aux, fb.aux, rtol=rtol, atol=atol)
+    assert set(fa.leaves) == set(fb.leaves)
+    for k in fa.leaves:
+        np.testing.assert_array_equal(fa.leaves[k], fb.leaves[k])
+    assert list(fa.roots) == list(fb.roots)
