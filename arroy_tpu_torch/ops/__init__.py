@@ -1,6 +1,6 @@
-"""Low-level device ops: packing, popcounts and the three hand-written
-kernels (`fused_select`, `bq_kernels`, `gather_score`; built by `_build`
-from ``csrc/``)."""
+"""Low-level device ops: packing, popcounts and the four hand-written
+kernels (`fused_select`, `bq_kernels`, `gather_score`, `traverse`; built
+by `_build` from ``csrc/``)."""
 
 from .binary import (
     bq_dot_rowwise,

@@ -38,11 +38,11 @@ from ..probe import (
     build_tables_np,
     rescore_cut,
 )
+from ..ops.traverse import traverse
 from ..search import (
     _expand_log,
     _next_pow2,
     _rescore_batch,
-    _traverse_batch,
     pop_bound,
     traversal_caps,
 )
@@ -214,7 +214,7 @@ class ShardedForestIndex:
         idx = self.shards[s]
         if margins is None:
             margins = self.metric.margin_matrix(idx.normals, idx.aux, qv, qf)
-        log, _, _ = _traverse_batch(
+        log, _, _ = traverse(
             margins, self.node_tables[s], self.leaf_items[s], self.roots[s], plan["sk"],
             plan["sk_local"], plan["pmax"], self.max_leaf, q_cap=plan["q_cap"], l_cap=plan["l_cap"],
         )

@@ -11,11 +11,15 @@ The best-first traversal pops a max-queue seeded with every tree root at
 +inf, descends split planes pushing children at ``min(parent, ∓margin)``
 and collects leaf windows until `search_k` candidates are in (reference:
 src/reader.rs:317-401).  The JAX package runs one `lax.while_loop` per
-query under `vmap`; here the queue is a [B, q_cap] tensor and each
-batched pop touches one lane per query by indexing.  A per-query
-``active`` mask freezes finished queries exactly as the vmapped loop
-does, and the host reads the batch's "any still active" flag once every
-`POP_BLOCK` pops, never once a pop.
+query under `vmap`, and its two-tier budget as a `lax.cond`, all in one
+device program.  Here the pop loop is `ops.traverse.traverse`: on the
+card kernel 4 (`csrc/traverse.cu`, a warp a query, the whole loop in one
+launch), on the CPU its plain version `_traverse_batch`, where the queue
+is a [B, q_cap] tensor, each batched pop touches one lane per query by
+indexing, a per-query ``active`` mask freezes finished queries exactly
+as the vmapped loop does, and the host reads the batch's "any still
+active" flag once every `POP_BLOCK` pops.  The multi-pop loop
+(`_traverse_multipop`) stays batched PyTorch on both devices.
 
 The exact engine's modes score every live
 item of the corpus and return the top-k under the reference's exact
@@ -69,6 +73,8 @@ from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
 from .ops.bq_kernels import bq_hamming_matrix
 from .ops.binary import WORD_BITS
 from .ops.fused_select import DEAD_KEY_MAX, DEFAULT_BM, DEFAULT_GP, fused_block_select
+from .ops.traverse import POP_BLOCK, traverse
+from .ops.traverse import traverse_reference as _traverse_batch  # noqa: F401 (the plain loop's name)
 
 _INF = float("inf")
 _F32_EPS = float(np.finfo(np.float32).eps)
@@ -603,9 +609,6 @@ _PROBE_MIN_ITEMS = 262_144
 #: values): a truncated query sends its batch to the full budget
 _SMALL_POPS_MULT = 32
 _SMALL_POPS_PAD = 256
-#: pops the traversal runs between two host reads of the batch's "any
-#: query still active" flag
-POP_BLOCK = 16
 
 
 def _rescore_batch(
@@ -785,134 +788,6 @@ def pops_budget(idx: DeviceIndex, search_k: int, exhaustive: bool, selectivity: 
                      search_k, exhaustive or search_k >= idx.n_items, selectivity)
 
 
-def _traverse_batch(
-    margins, node_table, leaf_items, roots, search_k, search_k_dyn, pmax, w,
-    q_cap=None, l_cap=None, filter_words=None, stats=None,
-):
-    """The best-first pop loop of a query batch (`_traverse_impl` with
-    ``expand=False``: its `one` body, or `one_filtered` when
-    ``filter_words`` is given).
-
-    ``margins`` [B, S] hold every query's margin against every split plane
-    (`Metric.margin_matrix`), so the loop never touches the d-wide
-    normals.  Returns ``(out, pops, n_cand)``, each [B]-leading int64:
-    unfiltered, ``out`` is the [B, l_cap] leaf log (the leaf index of each
-    non-empty window popped, in pop order; the tail slot holds their
-    count, entries past it are 0); filtered (``filter_words``: the
-    candidate bitmap as int32 words), ``out`` is the [B, search_k + w]
-    buffer of filter-accepted slots, -1 padded.
-
-    ``q_cap`` must hold every push, ``t + min(pmax, n_splits)`` lanes or
-    more (a split node has one parent, so it is pushed at most once), and
-    ``search_k_dyn <= search_k``.  Finished queries are frozen by the
-    per-query ``active`` mask, so pops past their end change nothing.
-    ``stats`` (a dict, if given) gets the loop's step count as "steps"."""
-    b, s_rows = margins.shape
-    dev = margins.device
-    t = int(roots.shape[0])
-    q_cap = t + pmax if q_cap is None else q_cap
-    l_cap = min(search_k, pmax) + 1 if l_cap is None else l_cap
-    if search_k_dyn > search_k:
-        raise ValueError(f"search_k_dyn {search_k_dyn} > search_k {search_k}")
-    cap = search_k + w
-    # the queue; lane q_cap takes the masked-off writes and is never read
-    # (every read goes through the [:, :q_cap] views).  Per-query state is
-    # kept as [B, 1] columns, so each lane is read with `gather` and
-    # written with `scatter_`: O(B) work a pop, one op each.
-    pq_dist = torch.full((b, q_cap + 1), -_INF, device=dev)
-    pq_node = torch.zeros((b, q_cap + 1), dtype=torch.int64, device=dev)
-    pq_dist[:, :t] = _INF
-    pq_node[:, :t] = roots
-    dist_v, node_v = pq_dist[:, :q_cap], pq_node[:, :q_cap]
-    n_pushed = torch.full((b, 1), t, dtype=torch.int64, device=dev)
-    n_cand = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-    pops = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-    filtered = filter_words is not None
-    if filtered:
-        w_iota = torch.arange(w, device=dev)
-        targets = (w_iota + 1).expand(b, w).contiguous()
-        cand = torch.full((b, cap + 1), -1, dtype=torch.int64, device=dev)  # column cap: trash
-    else:
-        leaf_log = torch.zeros((b, l_cap), dtype=torch.int64, device=dev)
-        n_leaf = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-
-    def running():
-        return (n_cand < search_k_dyn) & (pops < pmax)
-
-    # every active pop adds 1 to `pops` or sets it to pmax: pmax steps end
-    # every query
-    done = 0
-    while done < pmax:
-        steps = min(POP_BLOCK, pmax - done)
-        for _ in range(steps):
-            active = running()
-            # max-queue pop: max dist, ties to the larger node id, then the
-            # first lane (BinaryHeap<(OrderedFloat, NodeId)>, reference
-            # src/reader.rs:342); argmax returns the first maximal index
-            m = dist_v.amax(dim=1, keepdim=True)
-            at_m = dist_v == m
-            nid = torch.where(at_m, node_v, -1).amax(dim=1, keepdim=True)
-            i = (at_m & (node_v == nid)).to(torch.uint8).argmax(dim=1, keepdim=True)
-            # kind, left, right, ptr, leaf_off, leaf_cnt
-            row = node_table.index_select(0, nid.view(-1)).long()
-            knd, p = row[:, 0:1], row[:, 3:4]
-            alive = m > -_INF
-            go = active & alive
-            is_leaf = go & (knd == KIND_LEAF)
-            # FREE rows (deleted nodes, sharding padding) pop as no-ops so a
-            # dangling id drains the queue instead of spinning on it
-            is_split = go & (knd != KIND_LEAF) & (knd != KIND_FREE)
-            cnt = torch.where(is_leaf, row[:, 5:6], 0)
-            if filtered:
-                # the leaf's window compacted to its accepted items (the
-                # accepted items of a leaf are not contiguous in the CSR,
-                # and only they count toward search_k, reference
-                # src/reader.rs:354-360).  leaf_items ends in w entries of
-                # padding, so off + w never runs past it (where the JAX
-                # package's dynamic_slice would clamp the start).
-                win = leaf_items.take(row[:, 4:5] + w_iota).long()
-                slot_c = win.clamp(min=0)
-                bit = (filter_words.take(slot_c >> 5) >> (slot_c & 31)) & 1
-                valid = (w_iota < cnt) & (bit == 1)  # none unless is_leaf
-                csum = valid.cumsum(dim=1)
-                n_valid = csum[:, -1:]
-                src = torch.searchsorted(csum, targets).clamp(max=w - 1)
-                pos = torch.where(w_iota < n_valid, n_cand + w_iota, cap)
-                cand.scatter_(1, pos, torch.gather(win, 1, src))
-                n_cand += n_valid
-            else:
-                # log the window's CSR row (cnt > 0 only for a leaf pop);
-                # the windows are expanded after the loop (`_expand_log`)
-                log_it = (cnt > 0) & (n_leaf < l_cap - 1)
-                leaf_log.scatter_(1, torch.where(log_it, n_leaf, l_cap - 1), p)
-                n_leaf += log_it
-                n_cand += cnt
-            # split: the precomputed margin; the left child takes the popped
-            # lane, the right one is pushed at n_pushed
-            margin = torch.gather(margins, 1, p.clamp(0, s_rows - 1))
-            margin = torch.where(knd == KIND_SPLIT_NONE, 0.0, margin)
-            pq_dist.scatter_(
-                1, torch.where(go, i, q_cap), torch.where(is_split, torch.minimum(m, -margin), -_INF)
-            )
-            pq_node.scatter_(1, torch.where(is_split, i, q_cap), row[:, 1:2])
-            at = torch.where(is_split, n_pushed, q_cap)
-            pq_dist.scatter_(1, at, torch.minimum(m, margin))
-            pq_node.scatter_(1, at, row[:, 2:3])
-            n_pushed += is_split
-            pops += go
-            pops.masked_fill_(active & ~alive, pmax)  # an empty queue ends the query
-        done += steps
-        if not bool(running().any()):  # the one host sync of a block
-            break
-    if stats is not None:
-        stats["steps"] = done
-    pops, n_cand = pops.view(-1), n_cand.view(-1)
-    if filtered:
-        return cand[:, :cap], pops, n_cand
-    leaf_log[:, l_cap - 1] = n_leaf.view(-1)
-    return leaf_log, pops, n_cand
-
-
 def _traverse_multipop(margins, node_table, roots, search_k_dyn, pmax, P, q_cap, l_cap, stats=None):
     """The multi-pop pop loop of a query batch (`_traverse_multipop_impl`
     with ``expand=False``): each step pops the best entry of EVERY one of
@@ -1056,7 +931,19 @@ class TraversalFn:
     single tier pop one at a time, and a filter forces 1, as in the JAX
     package).  ``fallbacks`` counts batches that the small tier truncated
     and the full budget re-ran; ``last_pops`` [B], ``last_small_ok`` and
-    ``last_steps`` (pop-loop steps, both tiers) describe the last batch."""
+    ``last_steps`` (pop-loop steps, both tiers) describe the last batch.
+
+    On the card at P = 1, `walk` never reads the host: it launches kernel
+    4 once, at the full budget: a query that the small tier does not cut
+    pops the same sequence at either budget, and a batch the small tier
+    cuts re-runs at the full one, so every query's output is the two-tier
+    walk's.  The tier's outcome is computed on the device from the pops
+    and counts: ``fallbacks`` counts the batches whose small tier would
+    have been cut; they are read from the card only when asked.  At P > 1
+    the small tier is the plain multi-pop loop, which reads the host every
+    `POP_BLOCK` steps, and the tier is decided on the host as on the CPU;
+    its fallback is kernel 4.  Where kernel 4 ran, ``last_steps`` counts
+    its longest query's pops."""
 
     def __init__(
         self, idx: DeviceIndex, count: int, sk_exact: int, filter_slots, rescore: str,
@@ -1099,43 +986,65 @@ class TraversalFn:
         self.P = P if self.two_tier else 1
         self.q_cap_small = t + min(self.pmax_small, idx.n_splits) + 1 + self.P - 1
         self.roots = torch.tensor(idx.roots, dtype=torch.int64, device=idx.device)
-        self.fallbacks = 0
+        # host values on the CPU; device tensors where the card decided
+        self._fallbacks = 0
+        self._cut = None  # the last batch's small tier was cut
+        self._steps = 0  # plain-loop steps of the last batch
+        self._kernel_ran = False  # kernel 4 ran in the last batch
         self.last_pops = None
-        self.last_small_ok = None
-        self.last_steps = 0
         self._scan_aux = None
+
+    @property
+    def fallbacks(self) -> int:
+        return int(self._fallbacks)
+
+    @property
+    def last_small_ok(self):
+        return None if self._cut is None else not bool(self._cut)
+
+    @property
+    def last_steps(self) -> int:
+        if self._kernel_ran:
+            return self._steps + int(self.last_pops.max())
+        return self._steps
 
     def margins(self, qv, qf):
         idx = self.idx
         return idx.metric.margin_matrix(idx.normals, idx.aux, qv, qf)
 
     def traverse(self, margins, pmax: int, q_cap: int, P: int = 1):
-        """One pop loop at the given budget: `_traverse_batch`, or
-        `_traverse_multipop` at ``P`` > 1."""
+        """One pop loop at the given budget: `ops.traverse.traverse` (kernel
+        4 on the card), or `_traverse_multipop` at ``P`` > 1."""
         idx = self.idx
         stats = {}
         if P > 1:
             out = _traverse_multipop(margins, idx.node_table, self.roots, self.sk_exact,
                                      pmax, P, q_cap, self.l_cap, stats)
         else:
-            out = _traverse_batch(
+            out = traverse(
                 margins, idx.node_table, idx.leaf_items, self.roots, self.sk, self.sk_exact,
                 pmax, idx.max_leaf, q_cap=q_cap, l_cap=self.l_cap,
                 filter_words=self.filter_words, stats=stats,
             )
-        self.last_steps += stats["steps"]
+            self._kernel_ran = margins.device.type == "cuda"
+        self._steps += stats.get("steps", 0)  # the plain loops'; kernel 4 fills none
         return out
 
     def walk(self, margins):
         """The pop loop of a batch: leaf logs, or filtered candidates."""
-        self.last_steps = 0
-        if self.two_tier:
+        self._steps, self._kernel_ran = 0, False
+        if margins.device.type == "cuda" and self.P == 1:
+            # kernel 4 once, at the full budget (see the class docstring)
+            out, pops, n_cand = self.traverse(margins, self.pmax, self.q_cap)
+            if self.two_tier:
+                self._cut = ((pops > self.pmax_small) | (n_cand < self.sk_exact)).any()
+                self._fallbacks = self._fallbacks + self._cut
+        elif self.two_tier:
             out, pops, n_cand = self.traverse(margins, self.pmax_small, self.q_cap_small, self.P)
-            # one host read a batch (the JAX package decides on the device
-            # with lax.cond)
-            self.last_small_ok = not bool(((pops >= self.pmax_small) & (n_cand < self.sk_exact)).any())
-            if not self.last_small_ok:
-                self.fallbacks += 1
+            # one host read a batch
+            self._cut = bool(((pops >= self.pmax_small) & (n_cand < self.sk_exact)).any())
+            if self._cut:
+                self._fallbacks += 1
                 out, pops, _ = self.traverse(margins, self.pmax, self.q_cap)
         else:
             out, pops, _ = self.traverse(margins, self.pmax, self.q_cap)

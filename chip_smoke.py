@@ -10,15 +10,22 @@ exits non-zero:
 
 1. device — requires CUDA (never runs on the CPU); prints the card's name
    and power limit as nvidia-smi reports them;
-2. build — compiles the hand-written kernels from `arroy_tpu_torch/csrc/`,
-   one nvcc per source, all started together, and counts tensor-core
-   instructions in their SASS with cuobjdump: kernel 1's two instances
-   (wgmma) and kernel 2 (one-bit mma.sync) must have some;
+2. build — compiles the hand-written kernels from `arroy_tpu_torch/csrc/`
+   (kernels 1-4), one nvcc per source, all started together, and counts
+   tensor-core instructions in their SASS with cuobjdump: kernel 1's two
+   instances (wgmma) and kernel 2 (one-bit mma.sync) must have some;
 3. kernel parity — each kernel against its plain PyTorch version on the
    card, at edge-straddling shapes and at the main path's shapes, where
    both are timed with CUDA events beside the card's bound for the same
    work and, where one exists, a PyTorch library call computing it
-   (kernels 1 and 2 also beside cuBLAS's bare GEMM at the same shape);
+   (kernels 1 and 2 also beside cuBLAS's bare GEMM at the same shape).
+   Kernel 4 (the pop loop) is checked on phase 4's index and margins,
+   once it exists (at the start of phase 7): bit-equal at each search_k
+   of phase 7, both tiers' budgets, filtered, a q_cap past its shared-
+   memory queue and a queue that spills after 64 slots, timed at the full
+   budget beside its bytes bound and the dependent-read chain of the
+   query with the most pops (one L2 read a pop, the latency measured by a
+   pointer chase);
 4. slice — the bench configuration (100,000 x 768 clustered corpus,
    euclidean, 10 trees): add, build, commit to disk, reopen, validate,
    then exact search at f32x1 / bf16 / int8 on 4 batches of 2048
@@ -42,14 +49,18 @@ exits non-zero:
    resolves to under 262,144 items: batches of 256 of phase 4's queries,
    bench.py's search_k policy against recall@10 vs f32x1, with qps, pops
    per batch, whether the small tier sufficed, the re-score mode and
-   CUDA-event times of its four stages; 64 queries held against the same
-   searcher on the CPU, `nns()` against the searcher, and one filtered
-   batch (10% of the ids); then the multi-pop sweep: P = 1, 4, 16 pops a
-   step at search_k 2000, 4000 and 8000, with qps, loop steps and pops a
-   batch, device events a batch (`torch.profiler`) and recall@10; P = 1
-   must answer as the default searcher did, and P = 16's loop at the full
-   budget and an exhaustive search_k as P = 1's.  It has no kernel of its
-   own;
+   CUDA-event times of its four stages, kernel 4's launches a batch (one)
+   and the same answers from the plain loop on the same margins; 64
+   queries held against the same searcher on the CPU (its own margins,
+   and the card's: leaf logs equal, 0 ids differing), `nns()` against the
+   searcher, and one filtered batch (10% of the ids, equal to the plain
+   loop's); then the multi-pop sweep: P = 1, 4, 16 pops a step at
+   search_k 2000, 4000 and 8000, with qps, loop steps and pops a batch,
+   kernel 4's launches a batch, device events, device busy and kernel 4's
+   device time a batch (`torch.profiler`), the idle share and recall@10;
+   P = 1 must answer as the default searcher did, and P = 16's loop at the
+   full budget and an exhaustive search_k as P = 1's.  Its kernel is
+   kernel 4 (`csrc/traverse.cu`), the whole pop loop in one launch;
 8. large-corpus exact serving — 1,000,000 x 768 of the same corpus model
    (drawn on the card, seed 42), euclidean and "binary quantized
    cosine", 10 trees, 2 batches of 2048, whose [B, M] matrix (8.2 GB)
@@ -85,7 +96,8 @@ exits non-zero:
    for the first tree) → `search_bench` (`nns()` in batches of 256, at
    the default search_k and at 8000) → `recall_sweep` at 100,000 items
    with the exact point (kernel 1, recall@10 >= 0.99) and again under
-   binary quantized cosine (kernel 2) → `compare_exact` → `fuzz` (10 s) →
+   binary quantized cosine (kernel 2; both forest points kernel 4) →
+   `compare_exact` → `fuzz` (10 s) →
    `build_only` → `upgrade` (a no-op); (b) 100,000 x 768 of the same
    corpus written in the 1.0.0 npy layout, one batch of 2048 served by
    the exact engine and the traversal, `upgrade`, reopened: 1.2.0 in a
@@ -111,7 +123,9 @@ exits non-zero:
    trees): `search` and `probe_search` (bf16 tables, kernel 3 counted)
    under bench.py's search_k policy, doubling up to 5 times, to
    recall@10 0.95 against exact, with qps; kernel 3 held against its
-   plain version on shard 0's tables; (c) `ArroyBuilder.mesh` over the
+   plain version on shard 0's tables; kernel 4 counted (once a shard a
+   traversal call) and held bit-equal to its plain version on shard 0;
+   (c) `ArroyBuilder.mesh` over the
    same rows on 4 shards and on 1: equal node for node, valid, traversal
    recall@10 at search_k 8000 within 0.02 of a resident build, the three
    build times, then a 1% update built on the mesh; (d)
@@ -168,7 +182,7 @@ CORPUS_SLICE = 65_536
 #: phase 10: the upgrade's share of the CLI corpus, and the batch served
 #: before and after it
 M_UPGRADE, B_UPGRADE = 100_000, 2048
-KERNEL_SOURCES = ("fused_select", "hamming", "gather_score")
+KERNEL_SOURCES = ("fused_select", "hamming", "gather_score", "traverse")
 #: published peaks of one H100 SXM at 700 W (dense): bytes/s and op/s
 HBM_BPS = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -558,9 +572,104 @@ def kernel_parity(dev, rec):
                 f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}")
 
 
-def exact_slice(tmp, x, queries, batches):
+def l2_latency_ns(tv, n=1 << 19, steps=1 << 19):
+    """One dependent read from L2 on this card, in ns: a single thread
+    follows a random cycle of ``n`` int32 links (2 MiB: past L1, inside
+    L2) with loads that skip L1 (`ops.traverse.l2_chase`), timed with CUDA
+    events after a warm-up pass."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(n)
+    nxt = np.empty(n, np.int32)
+    nxt[perm] = np.roll(perm, -1)
+    dev_next = torch.from_numpy(nxt).cuda()
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: tv.l2_chase(dev_next, steps, sink), 3)
+    return ms * 1e6 / steps
+
+
+def traverse_work(pops, b, out_w, l2_ns):
+    """Kernel 4's bound on this run's data: bytes (each popped row's 24
+    bytes and its 4-byte margin read once, the outputs written once) and
+    operations (a pop's two f32 mins), as `bound` takes them, and the
+    dependent-read chain of the query with the most pops (one L2 read a
+    pop: the popped node's row, whose address the queue's top gives)."""
+    total, most = int(pops.sum()), int(pops.max())
+    out = bound(total * 28 + b * out_w * 8 + b * 16, total * 2, "f32")
+    out["chain_ms"] = most * l2_ns * 1e-6
+    return out
+
+
+def traverse_parity(r, queries, rec):
+    """Phase 3 for kernel 4, on phase 4's index and margins (run inside
+    phase 7, once the index exists): the kernel against its plain version
+    on the card, bit for bit, for one batch of B_PROBE queries at each
+    search_k of phase 7 at both tiers' budgets, filtered at 10% of the ids,
+    and past the shared-memory queue: a q_cap beyond `SMEM_LANES` and a
+    queue that spills after 64 slots.  The full budget at each search_k is
+    timed (kernel 10 runs, plain 3) beside its bound.  No launch here
+    counts."""
+    import torch
+
+    from arroy_tpu_torch.ops import traverse as tv
+
+    batch = queries[:B_PROBE]
+    rows = []
+    with uncounted(tv.launches):
+        l2_ns = l2_latency_ns(tv)
+        say("parity", f"traverse: one dependent L2 read {l2_ns:.1f} ns (pointer chase)")
+        for sk in MULTIPOP_SK:
+            n_f = min(max(r.n_items() // 10, 2 * sk), r.n_items())
+            filt = np.random.default_rng(5).choice(r.n_items(), n_f, replace=False)
+            for filtered in (False, True):
+                s = r.searcher(K, search_k=sk, engine="forest", traversal="xla",
+                               candidates=filt if filtered else None)
+                fn, idx = s.device_fn, s.device_fn.idx
+                dq = s.prepare_queries(batch)
+                m = fn.margins(dq[0], dq[3])
+                shapes = [("full", fn.pmax, fn.q_cap, None)]
+                if not filtered:
+                    shapes.append(("small", fn.pmax_small, fn.q_cap_small, None))
+                    if sk == MULTIPOP_SK[-1]:
+                        shapes += [("q_cap past SMEM_LANES", fn.pmax, tv.SMEM_LANES + 4096, None),
+                                   ("spill after 64 slots", fn.pmax, fn.q_cap, 64)]
+                for label, pmax, q_cap, ns in shapes:
+                    args = (m, idx.node_table, idx.leaf_items, fn.roots, fn.sk, fn.sk_exact, pmax,
+                            idx.max_leaf)
+                    kw = dict(q_cap=q_cap, l_cap=fn.l_cap, filter_words=fn.filter_words)
+                    smem_lanes, tv.SMEM_LANES = tv.SMEM_LANES, ns or tv.SMEM_LANES
+                    try:
+                        got = tv.traverse(*args, **kw)
+                    finally:
+                        tv.SMEM_LANES = smem_lanes
+                    want = tv.traverse_reference(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = max(int((g - w_).abs().max()) for g, w_ in zip(got, want))
+                    assert err == 0, f"kernel 4 differs from its plain version at {sk} {label}"
+                    row = dict(search_k=sk, filtered=filtered, shape=label, B=len(batch), pmax=pmax,
+                               q_cap=q_cap, l_cap=fn.l_cap, smem_lanes=ns or min(q_cap, tv.SMEM_LANES),
+                               pops_max=int(got[1].max()), pops_mean=float(got[1].float().mean()),
+                               max_abs_err=err)
+                    if label == "full":
+                        row["ms"] = cuda_ms(lambda: tv.traverse(*args, **kw), 10)
+                        row["plain_ms"] = cuda_ms(lambda: tv.traverse_reference(*args, **kw), 3)
+                        row.update(traverse_work(got[1], len(batch), got[0].shape[1], l2_ns))
+                    rows.append(row)
+                    say("parity", f"traverse: {json.dumps(row)}")
+    main = next(x for x in rows if x["search_k"] == MULTIPOP_SK[-1] and x["shape"] == "full"
+                and not x["filtered"])
+    rec["traverse"].update(
+        {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "chain_ms", "max_abs_err")},
+        library_ms=None, l2_read_ns=l2_ns, shape=dict(B=main["B"], search_k=main["search_k"],
+                                                      pmax=main["pmax"], q_cap=main["q_cap"]),
+        shapes_checked=len(rows))
+
+
+def exact_slice(tmp, x, queries, batches, rec):
     """Phases 4-5: the exact engine (kernels 1 and 2), and phase 7 (the
-    traversal) on phase 4's index."""
+    traversal, kernel 4) on phase 4's index, with phase 3's check of
+    kernel 4 on its margins first."""
     import torch
 
     from arroy_tpu_torch import Database, Reader, Writer
@@ -609,8 +718,9 @@ def exact_slice(tmp, x, queries, batches):
     fused_n = sum(fs.launches.values())
     assert fused_n >= 8, f"fused select launched {fused_n} times"
 
-    # 7. the forest traversal on the same reopened index (no kernel of its
-    # own, so it adds to no count; its exact reference is f32x1)
+    # 3 (kernel 4) and 7: the forest traversal on the same reopened index
+    # (its exact reference is f32x1)
+    traverse_parity(r, batches[0], rec)
     traversal_slice(f"{tmp}/euclid", r, batches[0], ref_ids[: len(batches[0])])
 
     # 5. BQ slice
@@ -663,6 +773,30 @@ def traversal_stages(fn, dq):
     return res, [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
 
 
+def plain_answers(s, batches):
+    """The searcher's answers with its pop loop replaced by the plain
+    version on the same CUDA margins (at the full budget, which answers as
+    the two-tier walk does)."""
+    from arroy_tpu_torch.ops import traverse as tv
+
+    fn, idx = s.device_fn, s.device_fn.idx
+    ids, dists = [], []
+    for b in batches:
+        qv, qn, qe, qf = s.prepare_queries(b)
+        out = tv.traverse_reference(fn.margins(qv, qf), idx.node_table, idx.leaf_items, fn.roots,
+                                    fn.sk, fn.sk_exact, fn.pmax, idx.max_leaf, q_cap=fn.q_cap,
+                                    l_cap=fn.l_cap, filter_words=fn.filter_words)
+        i, d = fn.rescore(fn.expand(out[0]), qv, qn, qe)
+        ids.append(i[:, :K].cpu().numpy())
+        dists.append(d[:, :K].cpu().numpy())
+    return np.concatenate(ids), np.concatenate(dists)
+
+
+def ids_differing(ids_a, ids_b):
+    """Ids of each row of `ids_a` missing from the same row of `ids_b`."""
+    return sum(len(set(a.tolist()) - set(b.tolist())) for a, b in zip(ids_a, ids_b))
+
+
 def traversal_slice(path, r, queries, ref_ids):
     """Phase 7: the best-first traversal at 100,000 x 768 (under 262,144
     items, so `searcher(engine="forest")` resolves to it), batches of
@@ -670,6 +804,7 @@ def traversal_slice(path, r, queries, ref_ids):
     import torch
 
     from arroy_tpu_torch import Database, Reader
+    from arroy_tpu_torch.ops import traverse as tv
 
     t_phase = time.perf_counter()
     batches = [queries[i:i + B_PROBE] for i in range(0, len(queries), B_PROBE)]
@@ -679,10 +814,19 @@ def traversal_slice(path, r, queries, ref_ids):
         s = r.searcher(K, search_k=sk, engine="forest")  # no traversal=
         assert s.route == "traversal", s.route
         fn = s.device_fn
-        f0 = fn.fallbacks
+        f0, n0 = fn.fallbacks, tv.launches["traverse"]
         ids, dists = (a[:, :K] for a in run_batches(s, batches, f"traversal sk={sk}"))
+        per_batch = (tv.launches["traverse"] - n0) / (len(batches) + 1)  # and the warm-up
         policy[sk] = (ids, dists)
         rc = recall_of(ids, ref_ids)
+        # the plain loop on the same margins answers the same
+        pids, pd = plain_answers(s, batches)
+        tie_aware_equal(ids, dists, pids, pd)
+        assert recall_of(pids, ref_ids) == rc
+        say("traversal", f"sk={sk}: kernel 4 launches a batch {per_batch:g}; the plain loop on the "
+            f"same margins: recall@{K} {recall_of(pids, ref_ids):.4f}, {ids_differing(ids, pids)} "
+            f"ids differ")
+        assert per_batch == 1, per_batch
         pops, small, stages = [], [], []
         for b in batches:
             _, ms = traversal_stages(fn, s.prepare_queries(b))
@@ -723,6 +867,20 @@ def traversal_slice(path, r, queries, ref_ids):
         say("traversal", f"sk={sk}, rescore {rescore} ({cs.device_fn.rescore_mode(64)}): 64 "
             f"queries agree with the CPU run ({n_diff} ids differ, at most 1 per row; distances "
             f"rtol {rtol:g}; {time.perf_counter() - t0:.2f} s)")
+    # the card and the CPU on the card's margins: the same leaf logs and,
+    # under the per-candidate re-score, the same ids
+    cs = cpu_r.searcher(K, search_k=sk, engine="forest", rescore="exact")
+    gq, cq = ge.prepare_queries(batches[0][:64]), cs.prepare_queries(batches[0][:64])
+    m = ge.device_fn.margins(gq[0], gq[3])
+    glog, clog = ge.device_fn.walk(m), cs.device_fn.walk(m.cpu())
+    assert torch.equal(glog.cpu(), clog), "the card's leaf logs differ from the CPU's"
+    gid, gd = (a[:, :K].cpu().numpy() for a in ge.device_fn.run(m, *gq[:3]))
+    cid, cd = (a[:, :K].numpy() for a in cs.device_fn.run(m.cpu(), *cq[:3]))
+    tie_aware_equal(gid, gd, cid, cd, rtol=1e-5)
+    n_diff = ids_differing(gid, cid)
+    say("traversal", f"sk={sk}: on the card's margins, 64 queries: leaf logs equal the CPU's, "
+        f"{n_diff} ids differ (per-candidate re-score, distances rtol 1e-5)")
+    assert n_diff == 0, n_diff
     # nns() on one batch equals the searcher with nns()'s per-candidate re-score
     want = ge(batches[0])
     assert r.nns(K).search_k(sk).by_vectors(batches[0]) == want, "nns() differs from the searcher"
@@ -733,7 +891,12 @@ def traversal_slice(path, r, queries, ref_ids):
     cand = np.random.default_rng(5).choice(r.n_items(), n_cand, replace=False)
     filt = r.searcher(K, search_k=sk, engine="forest", candidates=cand)
     assert filt.route == "traversal" and filt.device_fn.filter_words is not None, filt.route
-    fids = run_batches(filt, batches[:1], f"traversal filtered {n_cand} ids sk={sk}")[0][:, :K]
+    fids, fd = (a[:, :K] for a in run_batches(filt, batches[:1],
+                                              f"traversal filtered {n_cand} ids sk={sk}"))
+    pids, pd = plain_answers(filt, batches[:1])
+    tie_aware_equal(fids, fd, pids, pd)
+    say("traversal", f"filtered: the plain loop on the same margins answers the same "
+        f"({ids_differing(fids, pids)} ids differ)")
     assert set(np.unique(fids).tolist()) <= set(cand.tolist()), "filtered result outside the filter"
     rids, _ = run_batches(r.searcher(K, engine="exact", precision="f32x1", candidates=cand),
                           batches[:1], f"f32x1 filtered {n_cand} ids")
@@ -771,7 +934,9 @@ def traversal_events(path, qfile):
             ev = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
             print(json.dumps({"P": P, "search_k": sk, "device_events": sum(e.count for e in ev),
-                              "device_busy_ms": sum(e.self_device_time_total for e in ev) / 1e3}),
+                              "device_busy_ms": sum(e.self_device_time_total for e in ev) / 1e3,
+                              "kernel4_device_ms": sum(e.self_device_time_total for e in ev
+                                                       if "traverse_kernel" in e.key) / 1e3}),
                   flush=True)
 
 
@@ -782,6 +947,8 @@ def multipop_sweep(path, r, batches, ref_ids, policy):
     against f32x1.  P = 1 must answer as the default searcher did at the
     same search_k; P = 16's loop at the full budget and an exhaustive
     search_k must collect what P = 1's does (64 queries, tie-aware)."""
+    from arroy_tpu_torch.ops import traverse as tv
+
     out = []
     for P in MULTIPOP:
         for sk in MULTIPOP_SK:
@@ -793,7 +960,7 @@ def multipop_sweep(path, r, batches, ref_ids, policy):
             if P == 1 and sk in policy:
                 np.testing.assert_array_equal(ids, policy[sk][0])
                 np.testing.assert_array_equal(dists, policy[sk][1])
-            steps, pops, f0 = [], [], fn.fallbacks
+            steps, pops, f0, n0 = [], [], fn.fallbacks, tv.launches["traverse"]
             for b in batches:
                 fn(*s.prepare_queries(b))
                 steps.append(fn.last_steps)
@@ -801,7 +968,8 @@ def multipop_sweep(path, r, batches, ref_ids, policy):
             out.append(dict(P=P, P_small_tier=fn.P, search_k=sk, recall=recall_of(ids, ref_ids),
                             qps=len(batches[0]) / (times[f"traversal P={P} sk={sk}"] / 1e3),
                             ms=times[f"traversal P={P} sk={sk}"], steps=float(np.mean(steps)),
-                            pops=float(np.mean(pops)), fallbacks=fn.fallbacks - f0))
+                            pops=float(np.mean(pops)), fallbacks=fn.fallbacks - f0,
+                            kernel4_launches=(tv.launches["traverse"] - n0) / len(batches)))
     # device events of batch 0, profiled in a child process
     qfile = f"{os.path.dirname(path)}/traversal_batch.npy"
     np.save(qfile, batches[0])
@@ -814,7 +982,9 @@ def multipop_sweep(path, r, batches, ref_ids, policy):
     assert len(events) == len(out), child.stdout[-3000:]
     for row, ev in zip(out, events):
         assert (row["P"], row["search_k"]) == (ev["P"], ev["search_k"])
-        row.update(device_events=ev["device_events"], device_busy_ms=ev["device_busy_ms"])
+        row.update(device_events=ev["device_events"], device_busy_ms=ev["device_busy_ms"],
+                   kernel4_device_ms=ev["kernel4_device_ms"],
+                   idle_share=1 - ev["device_busy_ms"] / row["ms"])
         say("multipop", json.dumps(row))
     # P = 16's loop at the full budget against P = 1's, at a search_k past
     # every tree's items (both collect every leaf)
@@ -1588,10 +1758,11 @@ def operator_slice(tmp):
     from arroy_tpu_torch.metrics import Euclidean
     from arroy_tpu_torch.models import items
     from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
+    from arroy_tpu_torch.ops import traverse as tv
     from arroy_tpu_torch.utils import profiling
     from arroy_tpu_torch.version import CURRENT_VERSION
 
-    counters = (fs.launches, bk.launches, gs.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches)
 
     def counts():
         return {k: v for c in counters for k, v in c.items()}
@@ -1643,6 +1814,7 @@ def operator_slice(tmp):
         rc_forest, qps = grab(rf"search_k=\s*8000\s+recall@{K}={NUM}\s+qps=\s*{NUM}", out)
         rc_exact, _ = grab(rf"exact\s+recall@{K}={NUM}\s+qps=\s*{NUM}", out)
         moved = {k: n - c1[k] for k, n in counts().items() if n != c1[k]}
+        assert moved.get("traverse", 0) > 0, moved  # the forest points: kernel 4
         if metric == "euclidean":
             assert rc_exact >= 0.99, rc_exact
             assert moved.get("fused_select_bf16", 0) + moved.get("fused_select_int8", 0) > 0, moved
@@ -1784,6 +1956,7 @@ def multidevice_slice(rec):
     from arroy_tpu_torch import Database, Reader, Writer, entry, probe
     from arroy_tpu_torch.models import items
     from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
+    from arroy_tpu_torch.ops import traverse as tv
     from arroy_tpu_torch.parallel.forest import ShardedForestIndex
     from arroy_tpu_torch.parallel.mesh import ShardedExactIndex, _host_queries, make_mesh
 
@@ -1791,7 +1964,7 @@ def multidevice_slice(rec):
     items._DEVICE_MIRROR.clear()
     torch.cuda.empty_cache()
     out = {}
-    counters = (fs.launches, bk.launches, gs.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches)
     total = {k: 0 for c in counters for k in c}
 
     def reset():
@@ -1913,9 +2086,12 @@ def multidevice_slice(rec):
         f"{N_TREES} trees: {time.perf_counter() - t0:.2f} s")
     ref_ids = np.concatenate([ShardedExactIndex(mesh1, xs).search(b, K)[0] for b in qb])
     reset()
+    calls = {}
     for name, fn in (("traversal", fidx.search), ("probe", fidx.probe_search)):
         sk = SEARCH_K0
+        calls[name] = 0
         for step in range(SHARDED_SK_DOUBLINGS + 1):
+            calls[name] += 1 + len(qb)
             fn(qb[0], K, search_k=sk)  # warm-up (the probe packs its tables)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1929,8 +2105,26 @@ def multidevice_slice(rec):
             sk *= 2
         out[f"sharded_{name}"] = row
         assert rc >= TARGET_RECALL, f"sharded {name} recall {rc} < {TARGET_RECALL} at sk={sk}"
-    launched = read("b")["gather_score_bf16"]
+    got_b = read("b")
+    launched = got_b["gather_score_bf16"]
     assert launched > 0, "kernel 3 never launched on the sharded probe"
+    # kernel 4 once a shard for every traversal call, and bit-equal to its
+    # plain version on shard 0 at the budgets that reached the target
+    assert got_b["traverse"] == N_SHARDS * calls["traversal"], (got_b, calls)
+    plan = fidx.plan(K, out["sharded_traversal"]["search_k"])
+    with uncounted(tv.launches):
+        q0 = fidx._queries(qb[0], 0)
+        sh = fidx.shards[0]
+        m0 = fidx.metric.margin_matrix(sh.normals, sh.aux, q0[0], q0[3])
+        args = (m0, fidx.node_tables[0], fidx.leaf_items[0], fidx.roots[0], plan["sk"],
+                plan["sk_local"], plan["pmax"], fidx.max_leaf)
+        kw = dict(q_cap=plan["q_cap"], l_cap=plan["l_cap"])
+        for g, w_ in zip(tv.traverse(*args, **kw), tv.traverse_reference(*args, **kw)):
+            assert torch.equal(g, w_), "kernel 4 differs from its plain version on shard 0"
+    rec["traverse"]["phase11_check"] = {"shard_items": sh.n_items, "B": len(qb[0]), **plan,
+                                        "bit_equal": True}
+    say("multidevice", f"kernel 4: {got_b['traverse']} launches ({N_SHARDS} a traversal call); "
+        f"on shard 0 ({sh.n_items} items, plan {json.dumps(plan)}) bit-equal to its plain version")
     tables = fidx.enable_probe(dtype="bf16")
     t, sh = tables[0], fidx.shards[0]
     plan = fidx.probe_plan(K, out["sharded_probe"]["search_k"], tables, "bf16")
@@ -2185,6 +2379,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     from arroy_tpu_torch.ops import _build, bq_kernels as bk, fused_select as fs, gather_score as gs
+    from arroy_tpu_torch.ops import traverse as tv
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2238,6 +2433,10 @@ def main() -> int:
     for kind in ("bf16", "int8", "f32"):
         rec[f"gather_score_{kind}"] = dict(source="arroy_tpu_torch/csrc/gather_score.cu",
                                            replaces="arroy_tpu/ops/pallas_probe.py:75")
+    # kernel 4 is checked on phase 4's index, inside phase 7 (`traverse_parity`)
+    rec["traverse"] = dict(source="arroy_tpu_torch/csrc/traverse.cu",
+                           replaces="arroy_tpu/search.py:140 _traverse_impl (lax.while_loop, no "
+                                    "Pallas kernel)")
     for inst, ops in mma_ops.items():
         rec[inst]["tensor_core_ops"] = ops
     kernel_parity(dev, rec)
@@ -2251,9 +2450,10 @@ def main() -> int:
     for k in fs.launches:
         fs.launches[k] = 0
     bk.launches["bq_hamming"] = 0
+    tv.launches["traverse"] = 0
     with tempfile.TemporaryDirectory() as tmp:
-        exact_slice(tmp, x, queries, batches)
-    launches = {**dict(fs.launches), **dict(bk.launches)}
+        exact_slice(tmp, x, queries, batches, rec)
+    launches = {**dict(fs.launches), **dict(bk.launches), **dict(tv.launches)}
     say("launches", f"exact path: {json.dumps(launches)}")
     say("time", f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
     del x, queries, batches
@@ -2285,7 +2485,7 @@ def main() -> int:
 
     # 9. the incremental build on phase 8's euclidean index (no kernel of
     # its own: routing and the grow are plain PyTorch, so no count moves)
-    counters = (fs.launches, bk.launches, gs.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches)
     with uncounted(*counters):
         for c in counters:
             for k in c:
@@ -2304,7 +2504,7 @@ def main() -> int:
     say("launches", f"operator path: {json.dumps(p10)}")
     for name in rec:
         rec[name]["phase10_launches"] = p10[name]
-    for kernel in ("fused_select", "bq_hamming", "gather_score"):
+    for kernel in ("fused_select", "bq_hamming", "gather_score", "traverse"):
         assert sum(n for k, n in p10.items() if k.startswith(kernel)) > 0, \
             f"{kernel} never launched on the operator path"
     say("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")

@@ -426,12 +426,29 @@ def test_cuda_traversal_matmul_scan_matches_cpu(tmp_path, monkeypatch, metric):
                     rtol=1e-5, atol=1e-6)
 
 
+def _sync_warnings(fn):
+    """Run ``fn()`` in PyTorch's sync debug mode; returns its result and
+    the (file, line) of every synchronizing call it made."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [(w.filename, w.lineno) for w in rec
+                 if str(w.message).startswith("called a synchronizing CUDA operation")]
+
+
 @pytest.mark.parametrize("filtered", [False, True])
 def test_cuda_traversal_syncs_once_a_block(tmp_path, filtered):
-    """The pop loop reads the batch's "any query active" flag once every
-    POP_BLOCK pops and synchronizes nowhere else (PyTorch's sync debug
-    mode warns on every synchronizing call)."""
-    from arroy_tpu_torch.search import POP_BLOCK
+    """The plain pop loop, called directly on CUDA tensors, reads the
+    batch's "any query active" flag once every POP_BLOCK pops and
+    synchronizes nowhere else (PyTorch's sync debug mode warns on every
+    synchronizing call).  The searcher's own walk is kernel 4's
+    (`test_cuda_walk_never_syncs`)."""
+    from arroy_tpu_torch.search import POP_BLOCK, _traverse_batch
 
     gr, _, q = _traversal_pair(tmp_path)
     cand = np.arange(0, 6000, 2) if filtered else None  # 3,000 ids: more than search_k
@@ -440,18 +457,185 @@ def test_cuda_traversal_syncs_once_a_block(tmp_path, filtered):
     fn = s.device_fn
     dq = s.prepare_queries(q)
     m = fn.margins(dq[0], dq[3])
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            _, pops, _ = fn.traverse(m, fn.pmax, fn.q_cap)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [(w.filename, w.lineno) for w in rec
-             if str(w.message).startswith("called a synchronizing CUDA operation")]
+    idx = fn.idx
+    (_, pops, _), syncs = _sync_warnings(lambda: _traverse_batch(
+        m, idx.node_table, idx.leaf_items, fn.roots, fn.sk, fn.sk_exact, fn.pmax, idx.max_leaf,
+        q_cap=fn.q_cap, l_cap=fn.l_cap, filter_words=fn.filter_words))
     assert len(syncs) == -(-int(pops.max()) // POP_BLOCK), syncs
     assert len(set(syncs)) == 1, syncs  # all of them the block's one read
+
+
+@pytest.mark.parametrize("case", ["filtered", "two_tier", "fallback"])
+def test_cuda_walk_never_syncs(tmp_path, monkeypatch, case):
+    """`TraversalFn.walk` launches kernel 4 once a batch and makes no
+    synchronizing call: filtered (one tier), two-tier, and two-tier with a
+    small tier that cuts every query (the fallback).  Its output, pops and
+    outcome counters, read after, equal the CPU's walk on the same
+    margins."""
+    from arroy_tpu_torch import search as t_search
+    from arroy_tpu_torch.ops import traverse as tv
+
+    gr, cr, q = _traversal_pair(tmp_path)
+    cand = np.arange(0, 6000, 2) if case == "filtered" else None
+    mult, pad = (8, 64) if case == "two_tier" else (0, 1)
+    monkeypatch.setattr(t_search, "_SMALL_POPS_MULT", mult)
+    monkeypatch.setattr(t_search, "_SMALL_POPS_PAD", pad)
+    kw = dict(search_k=300, engine="forest", traversal="xla", candidates=cand)
+    s = gr.searcher(10, **kw)
+    fn, cfn = s.device_fn, cr.searcher(10, **kw).device_fn
+    assert fn.two_tier == (case != "filtered")
+    dq = s.prepare_queries(q)
+    m = fn.margins(dq[0], dq[3])
+    n0 = tv.launches["traverse"]
+    out, syncs = _sync_warnings(lambda: fn.walk(m))
+    assert syncs == [] and tv.launches["traverse"] == n0 + 1
+    want = cfn.walk(m.cpu())
+    assert torch.equal(out.cpu(), want) and torch.equal(fn.last_pops.cpu(), cfn.last_pops)
+    assert (fn.last_small_ok, fn.fallbacks) == (cfn.last_small_ok, cfn.fallbacks)
+    assert fn.last_steps == int(fn.last_pops.max())
+    if case == "fallback":
+        assert (fn.last_small_ok, fn.fallbacks) == (False, 1)
+
+
+def _kernel_index(metric="euclidean", m=30_000, d=16, n_trees=5, seed=9):
+    """A DeviceIndex on the card (clustered rows, so the forests are deep),
+    and 256 noisy queries prepared by a searcher of it."""
+    dev = require_cuda()
+    rng = np.random.default_rng(seed)
+    parents = rng.standard_normal((32, d)).astype(np.float32)
+    x = parents[rng.integers(32, size=m)] + 0.2 * rng.standard_normal((m, d)).astype(np.float32)
+    q = x[:256] + 0.3 * rng.standard_normal((256, d)).astype(np.float32)
+    db = Database(None, device=dev)
+    w = Writer(db, 0, d, metric=metric)
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(m), x)
+        w.builder(seed=seed).n_trees(n_trees).build(wtxn)
+    return Reader.open(db.read(), 0, db, metric=metric), q
+
+
+_KERNEL_INDEX = {}
+
+
+def _kernel_fn(metric, search_k, b, filtered):
+    """(TraversalFn, margins [b, S]) of the cached index of `metric`."""
+    if metric not in _KERNEL_INDEX:
+        _KERNEL_INDEX[metric] = _kernel_index(metric, m=30_000 if metric == "euclidean" else 6000)
+    r, q = _KERNEL_INDEX[metric]
+    n = r.n_items()
+    cand = np.arange(0, n, 3) if filtered else None  # a third of the ids
+    s = r.searcher(10, search_k=search_k, engine="forest", traversal="xla", candidates=cand)
+    assert s.route == "traversal"
+    dq = s.prepare_queries(q[:b])
+    return s.device_fn, s.device_fn.margins(dq[0], dq[3])
+
+
+def _kernel_vs_plain(fn, m, pmax, q_cap):
+    """Kernel 4 and the plain loop on the same CUDA margins: bit-equal."""
+    from arroy_tpu_torch.ops import traverse as tv
+
+    idx = fn.idx
+    args = (m, idx.node_table, idx.leaf_items, fn.roots, fn.sk, fn.sk_exact, pmax, idx.max_leaf)
+    n0 = tv.launches["traverse"]
+    got = tv.traverse(*args, q_cap=q_cap, l_cap=fn.l_cap, filter_words=fn.filter_words)
+    assert tv.launches["traverse"] == n0 + 1
+    want = tv.traverse_reference(*args, q_cap=q_cap, l_cap=fn.l_cap, filter_words=fn.filter_words)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    return got
+
+
+@pytest.mark.parametrize("tier", ["small", "full"])
+@pytest.mark.parametrize("search_k", [64, 2000, 8000])
+@pytest.mark.parametrize("b", [1, 65, 256])
+@pytest.mark.parametrize("filtered", [False, True])
+def test_cuda_traverse_kernel_matches_plain(filtered, b, search_k, tier):
+    """Leaf logs (or filtered candidate buffers), pops and counts, bit for
+    bit, at both tiers' budgets and queue widths."""
+    fn, m = _kernel_fn("euclidean", search_k, b, filtered)
+    pmax, q_cap = (fn.pmax_small, fn.q_cap_small) if tier == "small" else (fn.pmax, fn.q_cap)
+    out, pops, n_cand = _kernel_vs_plain(fn, m, pmax, q_cap)
+    assert int(n_cand.max()) > 0 and int(pops.min()) > 0
+
+
+@pytest.mark.parametrize("smem_lanes", [0, 16, 1000, None])
+def test_cuda_traverse_kernel_spills_past_shared_memory(monkeypatch, smem_lanes):
+    """Heap slots past `SMEM_LANES` live in global scratch: with it at 0
+    and 16 the heap spills at once, at 1000 partway; at its own value
+    (None), a q_cap past it allocates the scratch and uses its offsets."""
+    from arroy_tpu_torch.ops import traverse as tv
+
+    if smem_lanes is not None:
+        monkeypatch.setattr(tv, "SMEM_LANES", smem_lanes)
+    for search_k, filtered in ((8000, False), (2000, True)):
+        fn, m = _kernel_fn("euclidean", search_k, 65, filtered)
+        q_cap = fn.q_cap if smem_lanes is not None else tv.SMEM_LANES + 4096
+        assert q_cap > tv.SMEM_LANES or smem_lanes == 1000
+        _kernel_vs_plain(fn, m, fn.pmax, q_cap)
+
+
+def test_cuda_traverse_kernel_free_roots():
+    """The sharded forest's padding: a trailing FREE row and roots that
+    point at it (popped first, as no-ops, each adding a pop)."""
+    from arroy_tpu_torch.models.forest import KIND_FREE
+    from arroy_tpu_torch.ops import traverse as tv
+
+    fn, m = _kernel_fn("euclidean", 2000, 65, False)
+    idx = fn.idx
+    pad = torch.zeros((1, idx.node_table.shape[1]), dtype=torch.int32, device=m.device)
+    pad[0, 0] = KIND_FREE
+    nt = torch.cat([idx.node_table, pad])
+    n = idx.node_table.shape[0]
+    roots = torch.cat([fn.roots, torch.full((3,), n, dtype=torch.int64, device=m.device)])
+    q_cap = fn.q_cap + 3
+    args = (m, nt, idx.leaf_items, roots, fn.sk, fn.sk_exact, fn.pmax + 3, idx.max_leaf)
+    got = tv.traverse(*args, q_cap=q_cap, l_cap=fn.l_cap)
+    want = tv.traverse_reference(*args, q_cap=q_cap, l_cap=fn.l_cap)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    base = tv.traverse(m, idx.node_table, idx.leaf_items, fn.roots, fn.sk, fn.sk_exact, fn.pmax,
+                       idx.max_leaf, q_cap=fn.q_cap, l_cap=fn.l_cap)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1] + 3)
+
+
+@pytest.mark.parametrize("metric", [
+    "euclidean", "cosine", "dot-product", "manhattan",
+    "binary quantized euclidean", "binary quantized manhattan", "binary quantized cosine",
+])
+def test_cuda_traverse_kernel_all_metrics(metric):
+    """Each metric's own margins (BQ margins are integer-valued: many
+    ties), unfiltered and filtered."""
+    for filtered in (False, True):
+        fn, m = _kernel_fn(metric, 600, 65, filtered)
+        _kernel_vs_plain(fn, m, fn.pmax, fn.q_cap)
+
+
+def test_cuda_traverse_kernel_rejects():
+    from arroy_tpu_torch.ops import traverse as tv
+
+    fn, m = _kernel_fn("euclidean", 64, 1, False)
+    idx = fn.idx
+    args = [m, idx.node_table, idx.leaf_items, fn.roots, fn.sk, fn.sk_exact, fn.pmax, idx.max_leaf]
+
+    def call(**swap):
+        a = list(args)
+        for i, v in swap.items():
+            a[int(i[1:])] = v
+        return tv.traverse(*a, q_cap=fn.q_cap, l_cap=fn.l_cap)
+
+    with pytest.raises(ValueError, match="one device"):
+        call(a1=idx.node_table.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        call(a3=fn.roots.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        call(a0=m.double())
+    with pytest.raises(TypeError, match="int32"):
+        call(a1=idx.node_table.long())
+    with pytest.raises(TypeError, match="int32"):
+        tv.traverse(*args, q_cap=fn.q_cap, l_cap=fn.l_cap,
+                    filter_words=torch.zeros(4, dtype=torch.int64, device=m.device))
+    with pytest.raises(ValueError, match="q_cap"):
+        tv.traverse(*args, q_cap=len(fn.roots) - 1, l_cap=fn.l_cap)
 
 
 def _force_scan(monkeypatch, **more):
