@@ -4,8 +4,9 @@ Counterpart of the pop loop of `arroy_tpu/search.py:_traverse_impl`, a
 per-query `lax.while_loop` under `vmap` that the JAX package compiles
 with XLA (it has no Pallas kernel).  `traverse` dispatches on where its
 tensors live: on a CUDA device it launches the hand-written kernel
-(`csrc/traverse.cu`: a warp a query, the queue a binary max-heap in
-shared memory, the whole loop in one launch) or raises; on the CPU it
+(`csrc/traverse.cu`: a warp a query, the queue an 8-ary max-heap of
+packed 64-bit keys in shared memory, each pop's reads issued before the
+queue is sifted, the whole loop in one launch) or raises; on the CPU it
 runs `traverse_reference`, the plain PyTorch version (the queue as
 [B, q_cap] tensors, ~56 batched ops a pop, a host read every
 `POP_BLOCK` pops), which `search._traverse_batch` names too.
@@ -22,9 +23,11 @@ from . import _build
 
 #: kernel launches on the card (test/smoke observability)
 launches = {"traverse": 0}
-#: heap slots a query keeps in shared memory (8 bytes each: 112 KiB, so
+#: heap slots a query keeps in shared memory (8-byte keys: 112 KiB, so
 #: two queries fit an SM); slots past it live in a per-query global scratch
 SMEM_LANES = 14_336
+#: children of a heap slot in the kernel's queue
+HEAP_ARITY = 8
 #: pops the plain loop runs between two host reads of the batch's "any
 #: query still active" flag
 POP_BLOCK = 16
@@ -166,11 +169,21 @@ def _lib():
     lib.traverse.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+         ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
     )
     lib.chase.restype = ctypes.c_int
     lib.chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     return lib
+
+
+def heap_slots(q_cap: int) -> tuple[int, int]:
+    """A query's heap array in the kernel: (slots in shared memory, slots
+    in the global scratch).  Slot s of the 8-ary heap sits at array index
+    s + 7, so each slot's 8 children fill one aligned group; the array is
+    whole groups, at most `SMEM_LANES` of them in shared memory."""
+    total = -(-(q_cap + HEAP_ARITY - 1) // HEAP_ARITY) * HEAP_ARITY
+    sm = min(total, SMEM_LANES // HEAP_ARITY * HEAP_ARITY)
+    return sm, total - sm
 
 
 def l2_chase(next_idx: torch.Tensor, steps: int, sink: torch.Tensor) -> None:
@@ -197,7 +210,7 @@ def traverse(
     filter_words: the candidate bitmap as int32 words, or None (unfiltered)
 
     On the card the first `SMEM_LANES` heap slots of a query live in
-    shared memory and the rest in a global scratch.  ``stats`` is filled
+    shared memory and the rest in a global scratch (`heap_slots`).  ``stats`` is filled
     by the plain loop only (its step count): the kernel's steps are its
     pops, and nothing is read back from the card."""
     if margins.device.type == "cpu":
@@ -228,15 +241,20 @@ def traverse(
         tensors.append(filter_words)
     if any(x.device != margins.device or not x.is_contiguous() for x in tensors):
         raise ValueError("traverse: tensors must be contiguous on one device")
+    if node_table.shape[1] != 8 or node_table.data_ptr() % 16:
+        # the kernel reads a row as two 16-byte loads: 8 columns, aligned
+        padded = torch.zeros((node_table.shape[0], 8), dtype=torch.int32, device=margins.device)
+        padded[:, :6] = node_table[:, :6]
+        node_table = padded
     filtered = filter_words is not None
     out_w = search_k + w if filtered else l_cap
     out = torch.empty((b, out_w), dtype=torch.int64, device=margins.device)
     pops = torch.empty(b, dtype=torch.int64, device=margins.device)
     n_cand = torch.empty(b, dtype=torch.int64, device=margins.device)
-    ns = min(q_cap, SMEM_LANES)
+    ns, n_scratch = heap_slots(q_cap)
     scratch = None
-    if q_cap > ns and b:
-        scratch = torch.empty(b * (q_cap - ns) * 2, dtype=torch.int32, device=margins.device)
+    if n_scratch and b:
+        scratch = torch.empty(b * n_scratch, dtype=torch.int64, device=margins.device)
     if b:
         with torch.cuda.device(margins.device):
             rc = _lib().traverse(
@@ -244,7 +262,7 @@ def traverse(
                 node_table.shape[1], leaf_items.data_ptr(), roots.data_ptr(), t,
                 None if filter_words is None else filter_words.data_ptr(),
                 0 if filter_words is None else filter_words.numel(), search_k_dyn, pmax, w,
-                q_cap, out_w, ns, out.data_ptr(), pops.data_ptr(), n_cand.data_ptr(),
+                q_cap, out_w, ns, n_scratch, out.data_ptr(), pops.data_ptr(), n_cand.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
             )
         _build.check(rc, "traverse")

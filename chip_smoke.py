@@ -594,75 +594,135 @@ def traverse_work(pops, b, out_w, l2_ns):
     bytes and its 4-byte margin read once, the outputs written once) and
     operations (a pop's two f32 mins), as `bound` takes them, and the
     dependent-read chain of the query with the most pops (one L2 read a
-    pop: the popped node's row, whose address the queue's top gives)."""
+    pop: the popped split's margin, whose address its row gives)."""
     total, most = int(pops.sum()), int(pops.max())
     out = bound(total * 28 + b * out_w * 8 + b * 16, total * 2, "f32")
     out["chain_ms"] = most * l2_ns * 1e-6
     return out
 
 
-def traverse_parity(r, queries, rec):
-    """Phase 3 for kernel 4, on phase 4's index and margins (run inside
-    phase 7, once the index exists): the kernel against its plain version
-    on the card, bit for bit, for one batch of B_PROBE queries at each
-    search_k of phase 7 at both tiers' budgets, filtered at 10% of the ids,
-    and past the shared-memory queue: a q_cap beyond `SMEM_LANES` and a
-    queue that spills after 64 slots.  The full budget at each search_k is
-    timed (kernel 10 runs, plain 3) beside its bound.  No launch here
-    counts."""
+#: kernel 4's low-selectivity shapes: (label, share of the slots in the
+#: filter, search_k; None: past every accepted entry of the forest)
+TRAVERSE_SPARSE = (("every window, to max_leaf", 0.01, None), ("deep heap", 0.002, 1024))
+
+
+def traverse_shapes(r, batch):
+    """Kernel 4's shapes on phase 4's index, for one batch of queries:
+    dicts of label, search_k, filtered, args and kw of `ops.traverse.
+    traverse`, ns (a `SMEM_LANES` to set for the call, or None) and timed.
+    At each search_k of phase 7: the full budget (timed) and, unfiltered,
+    the small tier's, filtered at 10% of the ids (at least twice
+    search_k); at the last one, a q_cap past `SMEM_LANES` and a queue that
+    spills after 64 slots.  Then `TRAVERSE_SPARSE`, filtered and timed:
+    every window to max_leaf (1% of the slots at a search_k past all the
+    forest holds of them: every node pops, the queue empties, and the
+    widest leaf's window is read whole) and a deep heap (0.2% at search_k
+    1024: thousands of pops)."""
     import torch
 
     from arroy_tpu_torch.ops import traverse as tv
 
-    batch = queries[:B_PROBE]
+    shapes = []
+    for sk in MULTIPOP_SK:
+        n_f = min(max(r.n_items() // 10, 2 * sk), r.n_items())
+        filt = np.random.default_rng(5).choice(r.n_items(), n_f, replace=False)
+        for filtered in (False, True):
+            s = r.searcher(K, search_k=sk, engine="forest", traversal="xla",
+                           candidates=filt if filtered else None)
+            fn, idx = s.device_fn, s.device_fn.idx
+            dq = s.prepare_queries(batch)
+            m = fn.margins(dq[0], dq[3])
+            cases = [("full", fn.pmax, fn.q_cap, None, True)]
+            if not filtered:
+                cases.append(("small", fn.pmax_small, fn.q_cap_small, None, False))
+                if sk == MULTIPOP_SK[-1]:
+                    cases += [("q_cap past SMEM_LANES", fn.pmax, tv.SMEM_LANES + 4096, None, False),
+                              ("spill after 64 slots", fn.pmax, fn.q_cap, 64, False)]
+            for label, pmax, q_cap, ns, timed in cases:
+                shapes.append(dict(
+                    label=label, search_k=sk, filtered=filtered, ns=ns, timed=timed,
+                    args=(m, idx.node_table, idx.leaf_items, fn.roots, fn.sk, fn.sk_exact, pmax,
+                          idx.max_leaf),
+                    kw=dict(q_cap=q_cap, l_cap=fn.l_cap, filter_words=fn.filter_words)))
+    csr = idx.leaf_items[: idx.leaf_items.shape[0] - idx.max_leaf].cpu().numpy()
+    slots = np.unique(csr[csr >= 0])
+    t, n_nodes = len(fn.roots), idx.node_table.shape[0]
+    for label, share, sk in TRAVERSE_SPARSE:
+        chosen = np.random.default_rng(7).choice(slots, int(len(slots) * share), replace=False)
+        words = np.zeros(max((idx.cap + 31) // 32, 1), np.uint32)
+        np.bitwise_or.at(words, chosen >> 5, np.uint32(1) << (chosen & 31).astype(np.uint32))
+        held = int(np.isin(csr, chosen).sum())
+        sk = sk or 1 << held.bit_length()
+        shapes.append(dict(
+            label=label, search_k=sk, filtered=True, ns=None, timed=True,
+            args=(m, idx.node_table, idx.leaf_items, fn.roots, sk, sk, n_nodes + t + 1,
+                  idx.max_leaf),
+            kw=dict(q_cap=t + idx.n_splits + 1, l_cap=fn.l_cap,
+                    filter_words=torch.from_numpy(words.view(np.int32)).to(m.device)),
+            held=held))
+    return shapes
+
+
+def run_traverse(tv, shape):
+    """`ops.traverse.traverse` on one of `traverse_shapes`, with its
+    `SMEM_LANES` in force for the call."""
+    smem_lanes, tv.SMEM_LANES = tv.SMEM_LANES, shape["ns"] or tv.SMEM_LANES
+    try:
+        return tv.traverse(*shape["args"], **shape["kw"])
+    finally:
+        tv.SMEM_LANES = smem_lanes
+
+
+def traverse_parity(r, queries, rec):
+    """Phase 3 for kernel 4, on phase 4's index and margins (run inside
+    phase 7, once the index exists): the kernel against its plain version
+    on the card, bit for bit, at every shape of `traverse_shapes` (both
+    tiers' budgets at each search_k of phase 7, filtered and not, q_cap
+    past `SMEM_LANES`, a spill after 64 slots, every window to max_leaf
+    and a deep heap).  Timed shapes: kernel 10 runs, plain 3 (1 at the
+    sparse ones, whose plain loop pops thousands of times), beside the
+    bytes bound, the chain bound and ns a pop.  No launch here counts."""
+    import torch
+
+    from arroy_tpu_torch.ops import traverse as tv
+
     rows = []
     with uncounted(tv.launches):
         l2_ns = l2_latency_ns(tv)
         say("parity", f"traverse: one dependent L2 read {l2_ns:.1f} ns (pointer chase)")
-        for sk in MULTIPOP_SK:
-            n_f = min(max(r.n_items() // 10, 2 * sk), r.n_items())
-            filt = np.random.default_rng(5).choice(r.n_items(), n_f, replace=False)
-            for filtered in (False, True):
-                s = r.searcher(K, search_k=sk, engine="forest", traversal="xla",
-                               candidates=filt if filtered else None)
-                fn, idx = s.device_fn, s.device_fn.idx
-                dq = s.prepare_queries(batch)
-                m = fn.margins(dq[0], dq[3])
-                shapes = [("full", fn.pmax, fn.q_cap, None)]
-                if not filtered:
-                    shapes.append(("small", fn.pmax_small, fn.q_cap_small, None))
-                    if sk == MULTIPOP_SK[-1]:
-                        shapes += [("q_cap past SMEM_LANES", fn.pmax, tv.SMEM_LANES + 4096, None),
-                                   ("spill after 64 slots", fn.pmax, fn.q_cap, 64)]
-                for label, pmax, q_cap, ns in shapes:
-                    args = (m, idx.node_table, idx.leaf_items, fn.roots, fn.sk, fn.sk_exact, pmax,
-                            idx.max_leaf)
-                    kw = dict(q_cap=q_cap, l_cap=fn.l_cap, filter_words=fn.filter_words)
-                    smem_lanes, tv.SMEM_LANES = tv.SMEM_LANES, ns or tv.SMEM_LANES
-                    try:
-                        got = tv.traverse(*args, **kw)
-                    finally:
-                        tv.SMEM_LANES = smem_lanes
-                    want = tv.traverse_reference(*args, **kw)
-                    torch.cuda.synchronize()
-                    err = max(int((g - w_).abs().max()) for g, w_ in zip(got, want))
-                    assert err == 0, f"kernel 4 differs from its plain version at {sk} {label}"
-                    row = dict(search_k=sk, filtered=filtered, shape=label, B=len(batch), pmax=pmax,
-                               q_cap=q_cap, l_cap=fn.l_cap, smem_lanes=ns or min(q_cap, tv.SMEM_LANES),
-                               pops_max=int(got[1].max()), pops_mean=float(got[1].float().mean()),
-                               max_abs_err=err)
-                    if label == "full":
-                        row["ms"] = cuda_ms(lambda: tv.traverse(*args, **kw), 10)
-                        row["plain_ms"] = cuda_ms(lambda: tv.traverse_reference(*args, **kw), 3)
-                        row.update(traverse_work(got[1], len(batch), got[0].shape[1], l2_ns))
-                    rows.append(row)
-                    say("parity", f"traverse: {json.dumps(row)}")
+        for sh in traverse_shapes(r, queries[:B_PROBE]):
+            got = run_traverse(tv, sh)
+            want = tv.traverse_reference(*sh["args"], **sh["kw"])
+            torch.cuda.synchronize()
+            err = max(int((g - w_).abs().max()) for g, w_ in zip(got, want))
+            label, sk = sh["label"], sh["search_k"]
+            assert err == 0, f"kernel 4 differs from its plain version at {sk} {label}"
+            pops = got[1]
+            row = dict(search_k=sk, filtered=sh["filtered"], shape=label, B=int(pops.shape[0]),
+                       pmax=sh["args"][6], q_cap=sh["kw"]["q_cap"], l_cap=sh["kw"]["l_cap"],
+                       smem_lanes=sh["ns"] or tv.SMEM_LANES, pops_max=int(pops.max()),
+                       pops_mean=float(pops.float().mean()), max_abs_err=err)
+            if "held" in sh:
+                row["accepted_in_forest"] = sh["held"]
+                if sh["search_k"] > sh["held"]:  # every node popped: the queue emptied
+                    assert bool((pops == sh["args"][6]).all()), label
+                else:
+                    assert row["pops_max"] >= 1000, row
+            if sh["timed"]:
+                row["ms"] = cuda_ms(lambda: run_traverse(tv, sh), 10)
+                row["plain_ms"] = cuda_ms(lambda: tv.traverse_reference(*sh["args"], **sh["kw"]),
+                                          1 if "held" in sh else 3)
+                row.update(traverse_work(pops, row["B"], got[0].shape[1], l2_ns))
+                row["ns_pop"] = row["ms"] * 1e6 / row["pops_max"]
+                row["share_of_chain"] = row["chain_ms"] / row["ms"]
+            rows.append(row)
+            say("parity", f"traverse: {json.dumps(row)}")
     main = next(x for x in rows if x["search_k"] == MULTIPOP_SK[-1] and x["shape"] == "full"
                 and not x["filtered"])
     rec["traverse"].update(
         {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "chain_ms", "max_abs_err")},
-        library_ms=None, l2_read_ns=l2_ns, shape=dict(B=main["B"], search_k=main["search_k"],
-                                                      pmax=main["pmax"], q_cap=main["q_cap"]),
+        library_ms=None, l2_read_ns=l2_ns, ns_pop=main["ns_pop"],
+        shape=dict(B=main["B"], search_k=main["search_k"], pmax=main["pmax"], q_cap=main["q_cap"]),
         shapes_checked=len(rows))
 
 
@@ -902,6 +962,20 @@ def traversal_slice(path, r, queries, ref_ids):
                           batches[:1], f"f32x1 filtered {n_cand} ids")
     say("traversal", f"filtered {n_cand} ids sk={sk}: recall@{K} vs f32x1 over the filter "
         f"{recall_of(fids, rids):.4f}, pops per query max {int(filt.device_fn.last_pops.max())}")
+    # filtered beside unfiltered at each search_k of the sweep (10% of the
+    # ids, at least twice search_k), every batch
+    for fsk in MULTIPOP_SK:
+        n_f = min(max(r.n_items() // 10, 2 * fsk), r.n_items())
+        cand = np.random.default_rng(5).choice(r.n_items(), n_f, replace=False)
+        times = {}
+        run_batches(r.searcher(K, search_k=fsk, engine="forest"), batches, "unfiltered", times)
+        fs_ = r.searcher(K, search_k=fsk, engine="forest", candidates=cand)
+        run_batches(fs_, batches, "filtered", times)
+        say("traversal", json.dumps(dict(
+            search_k=fsk, filter_ids=n_f, B=B_PROBE, ms=times["unfiltered"],
+            qps=B_PROBE / times["unfiltered"] * 1e3, filtered_ms=times["filtered"],
+            filtered_qps=B_PROBE / times["filtered"] * 1e3,
+            filtered_pops_max=int(fs_.device_fn.last_pops.max()))))
     multipop_sweep(path, r, batches, ref_ids, policy)
     say("time", f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
 

@@ -10,7 +10,8 @@ Builds `chip_smoke.py`'s two configurations with the PyTorch port
   search_k 4000 (where both reach recall@10 0.95);
 - traversal: the exact configuration's index, 8 batches of 256, the
   best-first traversal (`searcher(engine="forest")`) at search_k 2000,
-  4000 and 8000.
+  4000 and 8000, unfiltered and filtered at 10% of the ids (at least
+  twice search_k, as `chip_smoke.py` phase 7 filters).
 
 For each searcher it times the 8 batches with the host clock around work
 that ends in `torch.cuda.synchronize()` (no profiler), then profiles the
@@ -113,13 +114,17 @@ def main() -> int:
         if "traversal" in slices:
             small = [batches[0][i:i + B_PROBE] for i in range(0, BATCH, B_PROBE)]
             for sk in TRAVERSAL_SEARCH_K:
-                s = r.searcher(K, search_k=sk, engine="forest")
-                fn = s.device_fn
-                profile(f"traversal, search_k {sk}, pmax_small {fn.pmax_small}, q_cap_small "
-                        f"{fn.q_cap_small}, {M} x {D}", s, small)
-                print(f"  last batch: pops max {int(fn.last_pops.max())}, mean "
-                      f"{float(fn.last_pops.float().mean()):.1f}; fallbacks {fn.fallbacks}; "
-                      f"re-score {fn.rescore_mode(B_PROBE)}", flush=True)
+                n_f = min(max(M // 10, 2 * sk), M)
+                cand = np.random.default_rng(5).choice(M, n_f, replace=False)
+                for filt in (None, cand):
+                    s = r.searcher(K, search_k=sk, engine="forest", candidates=filt)
+                    fn = s.device_fn
+                    what = "" if filt is None else f", filtered {n_f} ids"
+                    profile(f"traversal, search_k {sk}{what}, pmax_small {fn.pmax_small}, "
+                            f"q_cap_small {fn.q_cap_small}, {M} x {D}", s, small)
+                    print(f"  last batch: pops max {int(fn.last_pops.max())}, mean "
+                          f"{float(fn.last_pops.float().mean()):.1f}; fallbacks {fn.fallbacks}; "
+                          f"re-score {fn.rescore_mode(B_PROBE)}", flush=True)
         if "exact" in slices:
             r = build(f"{tmp}/bq", "binary quantized cosine", x[:M])
             profile(f"exact BQ cosine, {M} x {D}", r.searcher(K, engine="exact"), batches)

@@ -598,6 +598,110 @@ def test_cuda_traverse_kernel_free_roots():
     assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1] + 3)
 
 
+def _full_forest(rng, n_trees, depth, wide, n_slots):
+    """Full binary trees of ``depth`` split levels (numpy, no index):
+    split planes drawn from 256, leaves of 1 up to ``wide`` slots, the
+    first leaf of each tree at exactly ``wide``.  Returns node_table
+    [N, 8] int32, leaf_items (padded by w = wide), roots, the number of
+    splits and of split planes."""
+    from arroy_tpu_torch.models.forest import KIND_LEAF
+
+    rows, csr = [], []
+
+    def node(level, first):
+        nid = len(rows)
+        rows.append(None)
+        if level == depth:
+            cnt = wide if first else int(rng.integers(1, wide + 1))
+            rows[nid] = (KIND_LEAF, 0, 0, nid, len(csr), cnt)
+            csr.extend(rng.integers(0, n_slots, cnt).tolist())
+        else:
+            left, right = node(level + 1, first), node(level + 1, False)
+            rows[nid] = (0, left, right, int(rng.integers(0, 256)), 0, 0)
+        return nid
+
+    roots = [node(0, True) for _ in range(n_trees)]
+    nt = np.zeros((len(rows), 8), np.int32)
+    nt[:, :6] = np.asarray(rows, np.int32)
+    leaf_items = np.asarray(csr + [-1] * wide, np.int32)
+    return nt, leaf_items, np.asarray(roots, np.int64), int((nt[:, 0] == 0).sum()), 256
+
+
+def _queue_peak(margins, nt, roots):
+    """The most entries one query's queue holds when every node pops
+    (a host best-first walk on (distance, node id))."""
+    import heapq
+
+    heap = [(-np.inf, -int(r)) for r in roots]
+    heapq.heapify(heap)
+    peak = len(heap)
+    while heap:
+        nd, nn = heapq.heappop(heap)
+        kind, left, right, ptr = (int(v) for v in nt[-nn, :4])
+        if kind == 0:
+            d, m = np.float32(-nd), margins[ptr]
+            heapq.heappush(heap, (-min(d, -m), -left))
+            heapq.heappush(heap, (-min(d, m), -right))
+        peak = max(peak, len(heap))
+    return peak
+
+
+@pytest.mark.parametrize("smem_lanes", [64, None])
+def test_cuda_traverse_kernel_deep_heap(monkeypatch, smem_lanes):
+    """Every node of 4 full trees of 11 split levels pops (search_k past
+    every slot, so the queue empties and pops reach pmax): the queue holds
+    up to 658 keys, past 4 full levels of the 8-ary heap (585) into a
+    partial fifth, in shared memory and spilled after 64 slots."""
+    from arroy_tpu_torch.ops import traverse as tv
+
+    dev = require_cuda()
+    rng = np.random.default_rng(11)
+    nt, leaf_items, roots, n_splits, s_rows = _full_forest(rng, 4, 11, 3, 64)
+    margins = rng.standard_normal((64, s_rows)).astype(np.float32)
+    assert _queue_peak(margins[0], nt, roots) > 1 + 8 + 64 + 512
+    if smem_lanes is not None:
+        monkeypatch.setattr(tv, "SMEM_LANES", smem_lanes)
+    t, total = len(roots), int(leaf_items.shape[0]) - 3
+    args = [torch.from_numpy(a).to(dev) for a in (margins, nt, leaf_items, roots)]
+    args += [total + 1, total + 1, len(nt) + t + 1, 3]
+    kw = dict(q_cap=t + n_splits + 1, l_cap=len(nt))
+    got = tv.traverse(*args, **kw)
+    want = tv.traverse_reference(*args, **kw)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert bool((got[1] == len(nt) + t + 1).all()) and bool((got[2] == total).all())
+
+
+def test_cuda_traverse_kernel_full_window_filtered():
+    """Filtered leaf windows at max_leaf = 800 slots (two rounds of the
+    kernel's 24 chunks of 32 items; a leaf of 768 is one round), half the
+    slots accepted, search_k past half the forest; at the first search_k
+    the node table has 6 columns (the wrapper pads it to the kernel's 8)."""
+    from arroy_tpu_torch.ops import traverse as tv
+
+    dev = require_cuda()
+    rng = np.random.default_rng(12)
+    nt, leaf_items, roots, n_splits, s_rows = _full_forest(rng, 3, 5, 800, 4096)
+    margins = rng.standard_normal((65, s_rows)).astype(np.float32)
+    words = np.zeros(4096 // 32, np.uint32)
+    acc = np.flatnonzero(rng.random(4096) < 0.5)
+    np.bitwise_or.at(words, acc >> 5, np.uint32(1) << (acc & 31).astype(np.uint32))
+    t = len(roots)
+    n0 = tv.launches["traverse"]
+    for sk in (768, 8192, 16384):
+        table = np.ascontiguousarray(nt[:, :6]) if sk == 768 else nt
+        args = [torch.from_numpy(a).to(dev) for a in (margins, table, leaf_items, roots)]
+        args += [sk, sk, len(nt) + t + 1, 800]
+        kw = dict(q_cap=t + n_splits + 1, l_cap=min(sk, len(nt)) + 1,
+                  filter_words=torch.from_numpy(words.view(np.int32)).to(dev))
+        got = tv.traverse(*args, **kw)
+        want = tv.traverse_reference(*args, **kw)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+        assert int(got[2].min()) > 0
+    assert tv.launches["traverse"] == n0 + 3
+
+
 @pytest.mark.parametrize("metric", [
     "euclidean", "cosine", "dot-product", "manhattan",
     "binary quantized euclidean", "binary quantized manhattan", "binary quantized cosine",

@@ -236,109 +236,221 @@ def test_full_budget_equals_two_tier_per_query(built):
 # ---------------------------------------------------------------------------
 
 
-def _above(a, b):
-    """traverse.cu `above`: larger distance, ties to the larger node id."""
-    return a[0] > b[0] or (a[0] == b[0] and a[1] > b[1])
+_ARITY = tv.HEAP_ARITY
+_ROOT = _ARITY - 1  # the root's array index: each slot's children fill one aligned group
+_DEAD_HI = 0x007FFFFF  # `pack`'s high word at -inf
+_WINDOW_CHUNKS = 24  # traverse.cu kWindowChunks: 32-item chunks a lane loads in one round
+_GARBAGE = (1 << 64) - 1  # what an uncleared slot holds in the model: above every key
+_FREE_ROW = (KIND_FREE, 0, 0, 0, 0, 0)
+
+
+def _pack(d, n):
+    """traverse.cu `pack`: (distance, node id) as one key whose unsigned
+    order is the pop order; -0.0 is taken as +0.0, so ±0.0 tie."""
+    b = int(np.float32(0.0 if d == 0 else d).view(np.uint32))
+    b = (~b & 0xFFFFFFFF) if b & 0x80000000 else b | 0x80000000
+    return (b << 32) | ((int(n) & 0xFFFFFFFF) ^ 0x80000000)
+
+
+def _key_dist(k):
+    b = k >> 32
+    return np.uint32(b & 0x7FFFFFFF if b & 0x80000000 else ~b & 0xFFFFFFFF).view(np.float32)
+
+
+def _key_node(k):
+    n = (k & 0xFFFFFFFF) ^ 0x80000000
+    return n - (1 << 32) if n & 0x80000000 else n
 
 
 class _Heap:
-    """traverse.cu `Heap`: slots [0, ns) 'shared', the rest 'global'."""
+    """traverse.cu `Heap`: an 8-ary max-heap of keys, slot s at array
+    index s + 7; indices [0, ns) 'shared', the rest 'global' (ns from
+    `SMEM_LANES` as `ops.traverse.heap_slots` takes it).  Slots start as
+    garbage above every key, so a read past the heap's end that the kernel
+    relies on being 0 shows as a wrong pop."""
 
-    def __init__(self, q_cap, ns):
-        self.ns, self.sm, self.gl = ns, [None] * ns, [None] * max(q_cap - ns, 0)
+    def __init__(self, q_cap, smem_lanes):
+        total = -(-(q_cap + _ROOT) // _ARITY) * _ARITY
+        self.ns = min(total, smem_lanes // _ARITY * _ARITY)
+        self.sm, self.gl = [_GARBAGE] * self.ns, [_GARBAGE] * (total - self.ns)
 
-    def get(self, k):
-        return self.sm[k] if k < self.ns else self.gl[k - self.ns]
+    def _read(self, i):
+        return self.sm[i] if i < self.ns else self.gl[i - self.ns]
 
-    def put(self, k, e):
-        if k < self.ns:
-            self.sm[k] = e
+    def _write(self, i, k):
+        if i < self.ns:
+            self.sm[i] = k
         else:
-            self.gl[k - self.ns] = e
+            self.gl[i - self.ns] = k
 
-    def sift_up(self, k, e):
-        while k > 0:
-            p = (k - 1) >> 1
-            pe = self.get(p)
-            if not _above(e, pe):
-                break
-            self.put(k, pe)
-            k = p
-        self.put(k, e)
+    def get(self, s):
+        return self._read(s + _ROOT)
+
+    def put(self, s, k):
+        self._write(s + _ROOT, k)
+
+    def max_child(self, s):
+        """The largest key among slot s's children and its slot, by the
+        kernel's pairwise tree (a tie keeps the lower slot)."""
+        base = _ARITY * (s + 1)
+        assert (base < self.ns) == (base + _ARITY - 1 < self.ns)  # one group, one memory
+        k = [self._read(base + j) for j in range(_ARITY)]
+        j = list(range(_ARITY))
+        w = 1
+        while w < _ARITY:
+            for i in range(0, _ARITY, 2 * w):
+                if k[i + w] > k[i]:
+                    k[i], j[i] = k[i + w], j[i + w]
+            w *= 2
+        return k[0], _ARITY * s + 1 + j[0]
 
     def sift_down(self, size, e):
-        k = 0
-        while True:
-            c = 2 * k + 1
-            if c >= size:
+        s = 0
+        while _ARITY * s + 1 < size:
+            m, c = self.max_child(s)
+            if m <= e:
                 break
-            ce = self.get(c)
-            if c + 1 < size:
-                c2 = self.get(c + 1)
-                if _above(c2, ce):
-                    ce, c = c2, c + 1
-            if not _above(ce, e):
+            self.put(s, m)
+            s = c
+        self.put(s, e)
+
+    def push(self, s, e):
+        if s > 0 and (s - 1) % _ARITY == 0:
+            for j in range(_ARITY):
+                self._write(s + _ROOT + j, 0)
+        while s > 0:
+            q = (s - 1) // _ARITY
+            pe = self.get(q)
+            if e <= pe:
                 break
-            self.put(k, ce)
-            k = c
-        self.put(k, e)
+            self.put(s, pe)
+            s = q
+        self.put(s, e)
+
+
+def _is_split(kind):
+    return kind != KIND_LEAF and kind != KIND_FREE
 
 
 def _model(margins, nt, leaf_items, roots, words, sk, sk_dyn, pmax, w, q_cap, l_cap, ns,
-           on_pop=None):
-    """traverse.cu's loop, one query at a time, in Python."""
+           on_pop=None, trace=None):
+    """traverse.cu's loop, one query at a time, in Python, in the kernel's
+    order of work: the top entry held apart from the heap, and a pop
+    that takes the `top` predicted at the pop before and the row (and, for
+    a filtered leaf, the window's slots) read for it then, before the heap
+    was updated, so a wrong prediction shows as a wrong output.  ``trace`` (a list, if given) gets, for every pop that
+    leaves the queue non-empty, (the predicted top, the largest key left
+    in the heap, the candidates it was chosen from: the split's larger
+    child, or None, and the heap's root before the update)."""
     margins = np.asarray(margins, np.float32)
     b, s_rows = margins.shape
     filtered = words is not None
     out_w = sk + w if filtered else l_cap
     out = np.full((b, out_w), -1 if filtered else 0, np.int64)
     pops_o, ncand_o = np.zeros(b, np.int64), np.zeros(b, np.int64)
+
+    def load_row(n):
+        return tuple(int(v) for v in nt[n, :6]) if 0 <= n < len(nt) else _FREE_ROW
+
     for qi in range(b):
+        mrow = margins[qi]
+
+        def fetch(r):
+            """(margin, left child's row, right child's row) of a split."""
+            if not _is_split(r[0]):
+                return np.float32(0.0), None, None
+            mg = np.float32(0.0)
+            if r[0] != KIND_SPLIT_NONE and s_rows > 0:
+                mg = mrow[min(max(r[3], 0), s_rows - 1)]
+            return mg, load_row(r[1]), load_row(r[2])
+
         h, hs = _Heap(q_cap, ns), 0
         for r in roots:
-            h.sift_up(hs, (INF, int(r)))
+            h.push(hs, _pack(np.float32(INF), int(r)))
             hs += 1
+        top = hmax = 0
+        td, cur, mg, rl, rr = np.float32(0.0), _FREE_ROW, np.float32(0.0), None, None
+        if hs > 0:
+            top = h.get(0)
+            td = _key_dist(top)
+            cur = load_row(_key_node(top))
+            mg, rl, rr = fetch(cur)
+            hs -= 1
+            e = h.get(hs)
+            h.put(hs, 0)
+            if hs > 0:
+                h.sift_down(hs, e)
+            hmax = h.get(0) if hs > 0 else 0
+        def window_slots(r):
+            """A filtered leaf's window, read when the leaf is known to
+            pop next (the kernel loads it at the pop before)."""
+            if not filtered or r[0] != KIND_LEAF:
+                return []
+            return [int(leaf_items[r[4] + j]) for j in range(min(r[5], w))]
+
         pops = n_leaf = n_cand = 0
         n_pushed = len(roots)
+        slots = window_slots(cur)
         while n_cand < sk_dyn and pops < pmax:
-            top = h.get(0) if hs > 0 else (-INF, 0)
-            if not top[0] > -INF:
+            if not (top >> 32) > _DEAD_HI:
                 pops = pmax
                 break
-            m, nid = top
-            kind, left, right, ptr, off, cnt = (int(v) for v in nt[nid, :6]) \
-                if 0 <= nid < len(nt) else (KIND_FREE, 0, 0, 0, 0, 0)
+            kind, left, right, ptr, off, cnt = cur
             if on_pop is not None:
                 on_pop(kind)
-            if kind == KIND_LEAF:
-                if filtered:
-                    for j in range(min(cnt, w)):
-                        slot = int(leaf_items[off + j])
-                        sc = max(slot, 0)
-                        if sc >> 5 < len(words) and (int(words[sc >> 5]) >> (sc & 31)) & 1:
-                            out[qi, n_cand] = slot
-                            n_cand += 1
-                else:
+            nxt, kp, pushed, take_root, nrow = hmax, 0, 0, True, cur
+            if not _is_split(kind):
+                if kind == KIND_LEAF and filtered:
+                    # the window's slots (read at the pop before), then
+                    # their filter words, then the accepted items in window
+                    # order, in rounds of _WINDOW_CHUNKS chunks of 32
+                    assert len(slots) == min(cnt, w)
+                    for base in range(0, len(slots), 32 * _WINDOW_CHUNKS):
+                        chunk = slots[base:base + 32 * _WINDOW_CHUNKS]
+                        wds = [int(words[max(s_, 0) >> 5]) if max(s_, 0) >> 5 < len(words) else 0
+                               for s_ in chunk]
+                        for s_, wd in zip(chunk, wds):
+                            if (wd >> (max(s_, 0) & 31)) & 1:
+                                out[qi, n_cand] = s_
+                                n_cand += 1
+                elif kind == KIND_LEAF:
                     if cnt > 0 and n_leaf < l_cap - 1:
                         out[qi, n_leaf] = ptr
                         n_leaf += 1
                     n_cand += cnt
-                hs -= 1
-                if hs > 0:
-                    h.sift_down(hs, h.get(hs))
-            elif kind == KIND_FREE:
-                hs -= 1
-                if hs > 0:
-                    h.sift_down(hs, h.get(hs))
+                split_cand = None
             else:
-                mg = np.float32(0.0)
-                if kind != KIND_SPLIT_NONE and s_rows > 0:
-                    mg = margins[qi, min(max(ptr, 0), s_rows - 1)]
-                h.sift_down(hs, (min(m, float(-mg)), left))
+                kl, kr = _pack(min(td, -mg), left), _pack(min(td, mg), right)
+                kp, rp = kl, rl
                 if n_pushed < q_cap:
-                    h.sift_up(hs, (min(m, float(mg)), right))
-                    hs += 1
+                    pushed = kr
+                    if kr > kl:
+                        kp, pushed, rp = kr, kl, rr
                 n_pushed += 1
+                split_cand = kp
+                if kp > hmax:
+                    take_root, nxt, nrow = False, kp, rp
+            # the next pop's reads, before the heap is touched
+            if take_root:
+                nrow = load_row(_key_node(nxt))
+            cur = nrow
+            mg, rl, rr = fetch(cur)
+            slots = window_slots(cur)
+            old_hmax, top, td = hmax, nxt, _key_dist(nxt)
+            if take_root and hs > 0:
+                if not kp:  # no key replaces the root: the last one fills it
+                    hs -= 1
+                    kp = h.get(hs)
+                    h.put(hs, 0)
+                if hs > 0:
+                    h.sift_down(hs, kp)
+            if pushed:
+                h.push(hs, pushed)
+                hs += 1
+            hmax = h.get(0) if hs > 0 else 0
+            if trace is not None and top:
+                trace.append((top, max((h.get(s_) for s_ in range(hs)), default=0),
+                              (split_cand, old_hmax)))
             pops += 1
         if not filtered:
             out[qi, l_cap - 1] = n_leaf
@@ -350,13 +462,15 @@ def _model(margins, nt, leaf_items, roots, words, sk, sk_dyn, pmax, w, q_cap, l_
 _TIE_VALUES = np.array([-1.0, -0.5, -0.0, 0.0, 0.0, 0.5, 1.0, 2.0], np.float32)
 
 
-def _random_forest(rng):
+def _random_forest(rng, wide=0, max_depth_hi=6):
     """(node_table [N, 8] int32, leaf_items, roots int64, n_slots, w,
     n_splits): a few random trees with FREE children, empty leaves, KIND_SPLIT_NONE
-    splits, split planes shared between nodes, and repeated or FREE roots."""
+    splits, split planes shared between nodes, and repeated or FREE roots.
+    With ``wide``, the first leaf holds ``wide`` items (so w = wide) and
+    one leaf in ten up to ``wide``."""
     rows, csr = [], []
     n_slots = int(rng.integers(8, 64))
-    max_depth = int(rng.integers(1, 6))
+    max_depth = int(rng.integers(1, max_depth_hi))
     n_leaves = [0]
 
     def node(depth):
@@ -365,6 +479,9 @@ def _random_forest(rng):
         r = rng.random()
         if depth >= max_depth or r < 0.25:
             cnt = int(rng.integers(0, 6))
+            if wide:
+                cnt = wide if n_leaves[0] == 0 else (int(rng.integers(0, wide + 1))
+                                                     if rng.random() < 0.1 else cnt)
             off = len(csr)
             csr.extend(rng.integers(0, n_slots, cnt).tolist())
             rows[nid] = (KIND_LEAF, 0, 0, n_leaves[0], off, cnt)
@@ -394,36 +511,86 @@ def _random_forest(rng):
     return nt, leaf_items, np.asarray(roots, np.int64), n_slots, w, n_splits
 
 
+def _random_case(rng, wide=0, max_depth_hi=6):
+    """A random forest and one batch's inputs: margins that tie (±0.0
+    among them), random budgets (pmax 0 up to past every node,
+    search_k_dyn 0 up to search_k, l_cap from 1), a filter half the time
+    (always with ``wide``) and a shared-memory split (0 up to every slot)."""
+    nt, leaf_items, roots, n_slots, w, n_splits = _random_forest(rng, wide, max_depth_hi)
+    t = len(roots)
+    b = int(rng.integers(1, 4))
+    margins = np.where(rng.random((b, 6)) < 0.6, rng.choice(_TIE_VALUES, (b, 6)),
+                       rng.standard_normal((b, 6))).astype(np.float32)
+    sk = int(rng.integers(1, 40))
+    sk_dyn = int(rng.integers(0, sk + 1))
+    pmax = int(rng.integers(0, len(nt) + t + 3))
+    # a split is pushed once a copy of its tree (a repeated root makes two)
+    q_cap = t + 2 * n_splits + 1 + int(rng.integers(0, 3))
+    l_cap = int(rng.integers(1, min(sk, pmax) + 2))
+    words = None
+    if wide or rng.random() < 0.5:
+        words = _filter_words(np.flatnonzero(rng.random(n_slots) < 0.5), n_slots)
+    ns = int(rng.integers(0, q_cap + 1))
+    if wide:
+        sk = sk_dyn = int(rng.integers(1, 4 * wide))
+    return (margins, nt, leaf_items, roots, words, sk, sk_dyn, pmax, w, q_cap, l_cap), ns
+
+
+def _plain(margins, nt, leaf_items, roots, words, sk, sk_dyn, pmax, w, q_cap, l_cap):
+    return t_search._traverse_batch(
+        torch.from_numpy(margins), torch.from_numpy(nt), torch.from_numpy(leaf_items),
+        torch.from_numpy(roots), sk, sk_dyn, pmax, w, q_cap=q_cap, l_cap=l_cap,
+        filter_words=None if words is None else torch.from_numpy(words.view(np.int32)),
+    )
+
+
 @pytest.mark.parametrize("block", range(6))
 def test_heap_model_matches_plain_loop(block):
-    """50 random forests a block, half filtered, random budgets (pmax 0 up
-    to past every node, search_k_dyn 0 up to search_k, l_cap from 1) and
-    shared-memory splits (0 up to every slot)."""
+    """50 random forests a block (`_random_case`), half filtered."""
     rng = np.random.default_rng(1000 + block)
     for _ in range(50):
-        nt, leaf_items, roots, n_slots, w, n_splits = _random_forest(rng)
-        t = len(roots)
-        b = int(rng.integers(1, 4))
-        margins = np.where(rng.random((b, 6)) < 0.6, rng.choice(_TIE_VALUES, (b, 6)),
-                           rng.standard_normal((b, 6))).astype(np.float32)
-        sk = int(rng.integers(1, 40))
-        sk_dyn = int(rng.integers(0, sk + 1))
-        pmax = int(rng.integers(0, len(nt) + t + 3))
-        # a split is pushed once a copy of its tree (a repeated root makes two)
-        q_cap = t + 2 * n_splits + 1 + int(rng.integers(0, 3))
-        l_cap = int(rng.integers(1, min(sk, pmax) + 2))
-        words = None
-        if rng.random() < 0.5:
-            words = _filter_words(np.flatnonzero(rng.random(n_slots) < 0.5), n_slots)
-        ns = int(rng.integers(0, q_cap + 1))
-        got = t_search._traverse_batch(
-            torch.from_numpy(margins), torch.from_numpy(nt), torch.from_numpy(leaf_items),
-            torch.from_numpy(roots), sk, sk_dyn, pmax, w, q_cap=q_cap, l_cap=l_cap,
-            filter_words=None if words is None else torch.from_numpy(words.view(np.int32)),
-        )
-        want = _model(margins, nt, leaf_items, roots, words, sk, sk_dyn, pmax, w, q_cap, l_cap, ns)
-        for g, mdl in zip(got, want):
+        args, ns = _random_case(rng)
+        for g, mdl in zip(_plain(*args), _model(*args, ns)):
             np.testing.assert_array_equal(g.numpy(), mdl)
+
+
+@pytest.mark.parametrize("block", range(6))
+def test_prefetch_candidates_hold_the_next_top(block):
+    """On every pop of the same 300 forests, the top the kernel predicts
+    before it updates the heap (whose margin and children's rows it reads
+    while the heap is sifted) is at least every key left in the heap, and
+    it is one of the two candidates: the popped split's larger child (its
+    row read one pop earlier) or the heap's root."""
+    rng = np.random.default_rng(1000 + block)
+    n_pops = 0
+    for _ in range(50):
+        args, ns = _random_case(rng)
+        trace = []
+        _model(*args, ns, trace=trace)
+        for predicted, heap_max, cands in trace:
+            assert predicted >= heap_max and predicted in cands
+        n_pops += len(trace)
+    assert n_pops > 500
+
+
+@pytest.mark.parametrize("block", range(2))
+def test_heap_model_full_windows(block):
+    """Filtered windows at w = 800 (past one round of 24 chunks of 32
+    items) and deeper trees: the model against the plain loop on 25
+    forests a block."""
+    rng = np.random.default_rng(2000 + block)
+    full = n = 0
+    while n < 25:
+        args, ns = _random_case(rng, wide=800, max_depth_hi=8)
+        if args[8] != 800:  # a forest of FREE roots has no leaf
+            continue
+        n += 1
+        pops = []
+        got = _model(*args, ns, on_pop=pops.append)
+        for g, mdl in zip(_plain(*args), got):
+            np.testing.assert_array_equal(g.numpy(), mdl)
+        full += KIND_LEAF in pops
+    assert full > 10
 
 
 def test_signed_zero_ties_by_node_id():
