@@ -36,6 +36,11 @@ distance formulas:
   whose table would pass `_FUSED_TABLE_BYTES`, serve the unfused
   two-stage path (quantized dots, an exact f32 top-c cut, the same
   re-score);
+* every one of the routes above ends in kernel 5 (`ops/rescore`): on
+  the card one launch a batch cuts the keys (fused route) or takes the
+  [B, c] candidate list (the others), re-scores each candidate row read
+  once from the corpus, and returns the top-k, with no [B, c, d]
+  temporary;
 * binary-quantized metrics — the popcount distance matrix kernel
   (`ops/bq_kernels`), exact integer distances;
 * manhattan — the per-pair formula over every row, in query chunks.
@@ -72,7 +77,9 @@ from .device import DeviceIndex, _to_device
 from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
 from .ops.bq_kernels import bq_hamming_matrix
 from .ops.binary import WORD_BITS
-from .ops.fused_select import DEAD_KEY_MAX, DEFAULT_BM, DEFAULT_GP, fused_block_select
+from .ops.fused_select import DEFAULT_BM, DEFAULT_GP, fused_block_select
+from .ops.rescore import cut_rescore, rescore_topk
+from .ops.rescore import finish_topk as _finish
 from .ops.traverse import POP_BLOCK, traverse
 from .ops.traverse import traverse_reference as _traverse_batch  # noqa: F401 (the plain loop's name)
 
@@ -109,12 +116,18 @@ def _row_sq(rows: torch.Tensor) -> torch.Tensor:
 
 def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b.T with an f32 result.  f32 rows multiply in full f32 (TF32
-    would keep ~3 digits of each product); bf16 rows take `a` rounded to
-    bf16 and accumulate in f32, as the JAX package's
-    ``preferred_element_type=f32`` does."""
+    would keep ~3 digits of each product; the caller's TF32 setting is
+    restored afterwards, as the JAX package sets precision per operation
+    and changes no global); bf16 rows take `a` rounded to bf16 and
+    accumulate in f32, as the JAX package's ``preferred_element_type=f32``
+    does."""
     if b.dtype == torch.float32:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        return a @ b.T
+        flags = torch.backends.cuda.matmul
+        tf32, flags.allow_tf32 = flags.allow_tf32, False
+        try:
+            return a @ b.T
+        finally:
+            flags.allow_tf32 = tf32
     a = a.to(b.dtype)
     if a.device.type == "cuda":
         return torch.mm(a, b.T, out_dtype=torch.float32)
@@ -156,30 +169,6 @@ def _chunk_topk(score_of, m: int, chunk: int, kk: int, largest: bool):
     return best, torch.gather(torch.cat(cols, dim=1), 1, pos)
 
 
-def _rescore(metric, qv, qn, qe, cand, rows, norms, extras, valid):
-    """Exact per-pair distances of the [B, c] candidate slots (inf where
-    not `valid`)."""
-    d = metric.built_distance(
-        qv[:, None, :], qn[:, None], qe[:, None], rows[cand], norms[cand], extras[cand]
-    )
-    return torch.where(valid, d, _INF)
-
-
-def _finish(metric, dims, k, d, slot_to_id, cand=None, normalize=True):
-    """Top-k smallest of [B, n] distances → (ids [B, k], normalized d).
-    Column j is slot ``cand[:, j]``, or slot j when `cand` is None.  With
-    ``normalize=False`` the distances stay raw, +inf where dead (what a
-    sharded index merges)."""
-    out_d, top = torch.topk(d, k, dim=1, largest=False)
-    ids = slot_to_id[top if cand is None else torch.gather(cand, 1, top)]
-    if not normalize:
-        return ids, out_d
-    out_d = torch.where(
-        out_d < _INF, metric.normalized_distance(out_d, dims), float("nan")
-    )
-    return ids, out_d
-
-
 def _matmul_distance(metric, dots, aux, qv, qn):
     """Distances from the [B, n] f32 dots of dot-decomposable metrics:
     euclidean x² - 2q·x + q² (``aux`` = x²), cosine (1 - cos)/2 (``aux`` =
@@ -215,14 +204,16 @@ def _candidate_mask(cand, m: int):
 def _exact_f32_direct(
     metric, dims, k, x2, rows, norms, extras, slot_to_id, live, qv, qn, qe, normalize=True
 ):
-    """f32 matmul distances + top-4k cut + exact re-score (`_exact_f32_direct_impl`)."""
+    """f32 matmul distances + top-4k cut + exact re-score and top-k
+    (kernel 5, `rescore_topk`) (`_exact_f32_direct_impl`)."""
     aux = x2 if metric.name == "euclidean" else norms
     d = _matmul_distance(metric, _f32_matmul(qv, rows), aux, qv, qn)
     d = torch.where(live[None, :], d, _INF)
     k2 = min(max(4 * k, 32), rows.shape[0])
     d2, cand = torch.topk(d, k2, dim=1, largest=False)
-    dr = _rescore(metric, qv, qn, qe, cand, rows, norms, extras, d2 < _INF)
-    return _finish(metric, dims, k, dr, slot_to_id, cand, normalize)
+    return rescore_topk(
+        metric, dims, k, cand, d2 < _INF, rows, norms, extras, slot_to_id, qv, qn, qe, normalize
+    )
 
 
 def _score(metric, dots, x2, norms):
@@ -235,12 +226,12 @@ def _score(metric, dots, x2, norms):
 
 
 def _two_stage(metric, dims, k, c, score, rows, norms, extras, slot_to_id, live, qv, qn, qe):
-    """Exact f32 top-c cut of an f32 score matrix, then exact re-score."""
+    """Exact f32 top-c cut of an f32 score matrix, then exact re-score and
+    top-k (kernel 5, `rescore_topk`)."""
     score = torch.where(live[None, :], score, -_INF)
     sc, cand = torch.topk(score, c, dim=1)
     valid = live[cand] & (sc > -_INF)
-    d = _rescore(metric, qv, qn, qe, cand, rows, norms, extras, valid)
-    return _finish(metric, dims, k, d, slot_to_id, cand)
+    return rescore_topk(metric, dims, k, cand, valid, rows, norms, extras, slot_to_id, qv, qn, qe)
 
 
 def _fused_queries(qv, d_pad: int, int8: bool):
@@ -259,18 +250,15 @@ def _fused_queries(qv, d_pad: int, int8: bool):
 
 
 def _exact_fused(metric, dims, k, c, int8, tables, rows, norms, extras, slot_to_id, live, qv, qn, qe):
-    """Fused-select stage 1 + key cut + exact re-score (`_exact_fused_impl`)."""
+    """Fused-select stage 1 (kernel 1) + key cut, exact re-score and top-k
+    (kernel 5, `cut_rescore`) (`_exact_fused_impl`)."""
     xq, mult, add, pos_to_slot = tables
     q, qsc = _fused_queries(qv, xq.shape[1], int8)
     keys, idxp = fused_block_select(q, xq, qsc, mult, add)
-    cw = min(c, keys.shape[1])
-    selk, sel = torch.topk(keys, cw, dim=1)
-    cand = pos_to_slot[torch.gather(idxp, 1, sel).long()]
-    # keys at/below DEAD_KEY_MAX mark padding/dead positions (which alias
-    # slot 0 through pos_to_slot — key-masking also prevents duplicate ids)
-    valid = live[cand] & (selk > DEAD_KEY_MAX)
-    d = _rescore(metric, qv, qn, qe, cand, rows, norms, extras, valid)
-    return _finish(metric, dims, k, d, slot_to_id, cand)
+    return cut_rescore(
+        metric, dims, k, c, keys, idxp, pos_to_slot, live, rows, norms, extras, slot_to_id,
+        qv, qn, qe,
+    )
 
 
 def _fused_tables(metric, rows, norms, live, int8: bool):
@@ -382,8 +370,8 @@ def _exact_scan(
     Each chunk is one matmul of the queries against ``rows_mm`` (f32 or
     bf16; its dtype decides the tensor-core rate, and the sums are f32
     either way), the stage-1 score transform and a top-k2 cut; one `topk`
-    merges the winners and a final exact f32 re-score (`_rescore`, from
-    `rows`) ranks them."""
+    merges the winners and a final exact f32 re-score (kernel 5,
+    `rescore_topk`, from `rows`) ranks them."""
     k2 = max(min(_next_pow2(8 * k), chunk), 128)
 
     def score_of(s, e):
@@ -391,9 +379,11 @@ def _exact_scan(
         return torch.where(live[None, s:e], sc, -_INF)
 
     best, cand = _chunk_topk(score_of, rows_mm.shape[0], chunk, k2, largest=True)
-    d = _rescore(metric, qv, qn, qe, cand, rows, norms, extras, live[cand] & (best > -_INF))
     scan_calls["exact_scan"] += 1
-    return _finish(metric, dims, k, d, slot_to_id, cand, normalize)
+    return rescore_topk(
+        metric, dims, k, cand, live[cand] & (best > -_INF), rows, norms, extras, slot_to_id,
+        qv, qn, qe, normalize,
+    )
 
 
 def _exact_batch(metric, dims, k, rows, norms, extras, slot_to_id, live, qv, qn, qe, normalize=True):

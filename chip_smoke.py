@@ -11,7 +11,7 @@ exits non-zero:
 1. device — requires CUDA (never runs on the CPU); prints the card's name
    and power limit as nvidia-smi reports them;
 2. build — compiles the hand-written kernels from `arroy_tpu_torch/csrc/`
-   (kernels 1-4), one nvcc per source, all started together, and counts
+   (kernels 1-5), one nvcc per source, all started together, and counts
    tensor-core instructions in their SASS with cuobjdump: kernel 1's two
    instances (wgmma) and kernel 2 (one-bit mma.sync) must have some;
 3. kernel parity — each kernel against its plain PyTorch version on the
@@ -25,11 +25,17 @@ exits non-zero:
    memory queue and a queue that spills after 64 slots, timed at the full
    budget beside its bytes bound and the dependent-read chain of the
    query with the most pops (one L2 read a pop, the latency measured by a
-   pointer chase);
+   pointer chase.  Kernel 5 (the exact routes' stage 2: key cut, re-score,
+   top-k) gets a `[parity] rescore` line a shape (`RESCORE_CASES`: the
+   main path's cut and f32x1 list, 1M's cut, c up to 8,192 and the whole
+   corpus, k = 1 to 25,000, bf16 rows, a filtered live mask, an all-dead
+   query): ids tie-aware equal, the largest relative error, kernel ms
+   beside its bytes bound and the plain version's ms;
 4. slice — the bench configuration (100,000 x 768 clustered corpus,
    euclidean, 10 trees): add, build, commit to disk, reopen, validate,
    then exact search at f32x1 / bf16 / int8 on 4 batches of 2048
-   queries, with recall and brute-force checks;
+   queries, with recall and brute-force checks; kernel 5 launches once a
+   batch on each route (f32x1 its list entry, the fused routes its cut);
 5. BQ slice — the same corpus under "binary quantized cosine", checked
    tie-aware against the same engine run on the CPU (plain versions);
 6. probe slice — 262,144 x 768 (the size at which the forest engine's
@@ -68,7 +74,8 @@ exits non-zero:
    items: f32x1 streams and equals the same searcher on sub-batches of
    256 (the matrix path) and a float64 brute force; bf16 and int8 run
    fused (kernel 1), then streamed (the fused-table cap lowered for that
-   searcher), each at recall@10 >= 0.99 against f32x1; kernel 1 held
+   searcher), each at recall@10 >= 0.99 against f32x1, each route with
+   kernel 5 once a batch; kernel 1 held
    against its plain version on each fused searcher's own tables (Mp =
    1,001,472) and one batch's queries; the BQ scan (kernel 2 once a
    chunk) streams and equals the matrix on sub-batches of 256, and
@@ -108,7 +115,7 @@ exits non-zero:
    (kernel 3) to recall@10 >= 0.95 against f32x1 at the first search_k
    of 2000·2^n, and whose forest equals the euclidean one node for node;
    (d) one exact batch inside `utils.profiling.trace`, whose trace must
-   name kernel 1's CUDA function.  It prints each part's time and its
+   name kernel 1's and kernel 5's CUDA functions.  It prints each part's time and its
    launches per kernel instance;
 11. multi-device on one card (`arroy_tpu_torch.parallel`), 4 shards on
    cuda:0 beside 1 shard: (a) `ShardedExactIndex` over phase 8's
@@ -182,7 +189,7 @@ CORPUS_SLICE = 65_536
 #: phase 10: the upgrade's share of the CLI corpus, and the batch served
 #: before and after it
 M_UPGRADE, B_UPGRADE = 100_000, 2048
-KERNEL_SOURCES = ("fused_select", "hamming", "gather_score", "traverse")
+KERNEL_SOURCES = ("fused_select", "hamming", "gather_score", "traverse", "rescore")
 #: published peaks of one H100 SXM at 700 W (dense): bytes/s and op/s
 HBM_BPS = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -422,15 +429,15 @@ def recall_of(ids, ref_ids):
     return hits / ref_ids.size
 
 
-def tie_aware_equal(ids_a, d_a, ids_b, d_b, rtol=0.0):
-    """Sorted distance rows equal (within `rtol`); ids equal wherever the
-    distance is unique (within `rtol`) in the row's top-k.  The row's
-    largest distance may tie with items past k (a boundary tie), so it is
-    exempt."""
+def tie_aware_equal(ids_a, d_a, ids_b, d_b, rtol=0.0, atol=0.0):
+    """Sorted distance rows equal (within `rtol`, `atol`); ids equal
+    wherever the distance is unique (within them) in the row's top-k.  The
+    row's largest distance may tie with items past k (a boundary tie), so
+    it is exempt."""
     for ia, da, ib, db in zip(ids_a, d_a, ids_b, d_b):
-        np.testing.assert_allclose(np.sort(da), np.sort(db), rtol=rtol, atol=0)
+        np.testing.assert_allclose(np.sort(da), np.sort(db), rtol=rtol, atol=atol)
         for j in range(len(da)):
-            near = np.isclose(da, da[j], rtol=rtol, atol=0)
+            near = np.isclose(da, da[j], rtol=rtol, atol=atol)
             if near.sum() == 1 and not near[np.argmax(da)]:
                 assert ia[j] == ib[j], f"id differs at a unique distance: {ia} vs {ib}"
 
@@ -570,6 +577,139 @@ def kernel_parity(dev, rec):
         if "ms" in r:
             say("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
                 f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}")
+
+
+#: kernel 5's parity shapes: (entry, metric, rows, B, n2 (cut) or None, c, k,
+#: live share).  The exact slice's main shapes first (the fused cut at
+#: 100,000 items, f32x1's list of 4k), timed; then 1M's cut (c = 128), the
+#: scan's and f32's list (128), the 3 GiB table cap's cut (c = 512), a
+#: filtered live mask, bf16 rows, k = 1, 100 and 1000, the other metrics,
+#: and past `SMEM_CANDIDATES` (the scratch buffer): c = 4,096, 8,192 and
+#: f32x1's whole corpus at count = cap / 4.
+RESCORE_CASES = (
+    ("cut", "euclidean", "f32", BATCH, 784, 32, K, 0.95),
+    ("list", "euclidean", "f32", BATCH, None, 40, K, 0.95),
+    ("cut", "euclidean", "bf16", BATCH, 784, 32, K, 0.95),
+    ("cut", "euclidean", "f32", BATCH, 7824, 128, K, 0.95),
+    ("list", "euclidean", "f32", BATCH, None, 128, K, 0.95),
+    ("cut", "euclidean", "f32", 256, 32768, 512, 100, 0.95),
+    ("cut", "euclidean", "f32", BATCH, 784, 32, K, 0.05),
+    ("cut", "cosine", "f32", BATCH, 784, 32, 1, 0.95),
+    ("list", "dot-product", "bf16", BATCH, None, 40, K, 0.95),
+    ("cut", "euclidean", "bf16", 16, 20000, 4096, 1, 0.95),
+    ("list", "euclidean", "f32", 64, None, 8192, 1000, 0.95),
+    ("list", "euclidean", "f32", 4, None, M, M // 4, 0.95),
+)
+
+
+def sorted_topk_agree(ids, d, rids, rd, rtol, atol):
+    """`tie_aware_equal` for rows both sorted ascending, in O(B·k): the
+    distances equal within the tolerance (NaN at the same places), ids
+    equal wherever a distance is apart from both neighbours by more than
+    the tolerance, the row's last exempt (a boundary tie)."""
+    np.testing.assert_allclose(d, rd, rtol=rtol, atol=atol)
+    tol = atol + rtol * np.abs(rd)
+    gap = np.diff(rd, axis=1) > tol[:, 1:]
+    apart = np.ones(rd.shape, bool)
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    apart[:, -1] = False
+    apart &= np.isfinite(rd)
+    assert np.array_equal(ids[apart], rids[apart]), "an id differs at a unique distance"
+
+
+def rescore_parity(dev, rec):
+    """Phase 3 for kernel 5 (`ops.rescore`): each entry against its plain
+    version at `RESCORE_CASES`, on a 100,000 x 768 corpus drawn on the card
+    (seed 5): launched once a call, ids tie-aware equal, distances within
+    rtol 1e-5 (and, for the dot product, which cancels, 1e-7 of |x|·|q|),
+    NaN at the same places.  Synthetic keys: distinct positions per query,
+    5% dead, the last query all dead.  Each shape is timed beside its bytes
+    bound (the keys, positions and queries, and the rows of this run's
+    valid candidates, read once; [B, k] written) and the plain version; the
+    first shape of each entry is its record."""
+    import torch
+
+    from arroy_tpu_torch.metrics import metric_by_name
+    from arroy_tpu_torch.ops import rescore as rs
+    from arroy_tpu_torch.ops.fused_select import DEAD_KEY_MAX
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((M, D), generator=g, device=dev)
+    s2i = torch.randperm(M, generator=g, device=dev) * 3 + 7
+    mp = -(-M // 256) * 256
+    p2s = torch.zeros(mp, dtype=torch.int64, device=dev)
+    p2s[:M] = torch.randperm(M, generator=g, device=dev)
+    rows_of = {"f32": x, "bf16": x.to(torch.bfloat16)}
+    norms_of = {k: r.float().norm(dim=1) for k, r in rows_of.items()}
+    extras = torch.zeros(M, device=dev)
+    for entry, metric, dtype, b, n2, c, k, share in RESCORE_CASES:
+        rows, norms = rows_of[dtype], norms_of[dtype]
+        live = torch.rand(M, generator=g, device=dev) < share
+        qv = x[torch.randint(M, (b,), generator=g, device=dev)] \
+            + 0.3 * torch.randn((b, D), generator=g, device=dev)
+        qn, qe = qv.norm(dim=1), torch.zeros(b, device=dev)
+        common = (rows, norms, extras, s2i, qv, qn, qe)
+        m = metric_by_name(metric)
+        if entry == "cut":
+            keys = torch.randint(DEAD_KEY_MAX + 1, 2**31 - 1, (b, n2), generator=g, device=dev)
+            keys[torch.rand((b, n2), generator=g, device=dev) < 0.05] = DEAD_KEY_MAX
+            idxp = (torch.randint(mp, (b, 1), generator=g, device=dev)
+                    + torch.arange(n2, device=dev)[None, :] * 7919) % mp
+            keys[idxp >= M] = DEAD_KEY_MAX
+            keys[-1] = DEAD_KEY_MAX
+            keys, idxp = keys.to(torch.int32), idxp.to(torch.int32)
+            args = (k, c, keys, idxp, p2s, live)
+            kernel, plain, name = rs.cut_rescore, rs.cut_rescore_reference, "cut_rescore"
+            selk, sel = torch.topk(keys, c, dim=1)
+            cand = p2s[torch.gather(idxp, 1, sel).long()]
+            n_valid = int((live[cand] & (selk > DEAD_KEY_MAX)).sum())
+            in_bytes = b * n2 * 8 + b * c * 9
+        else:  # distinct slots a query (7919 is prime to M)
+            cand = (torch.randint(M, (b, 1), generator=g, device=dev)
+                    + torch.arange(c, device=dev)[None, :] * 7919) % M
+            valid = live[cand] & (torch.rand((b, c), generator=g, device=dev) < 0.95)
+            valid[-1] = False
+            args = (k, cand, valid)
+            kernel, plain, name = rs.rescore_topk, rs.rescore_topk_reference, "rescore_topk"
+            n_valid = int(valid.sum())
+            in_bytes = b * c * 9
+        n0 = rs.launches[name]
+        ids, d = kernel(m, D, *args, *common)
+        torch.cuda.synchronize()
+        assert rs.launches[name] == n0 + 1, f"{name} launched {rs.launches[name] - n0} times"
+        rids, rd = plain(m, D, *args, *common)
+        d, rd = d.cpu().numpy(), rd.cpu().numpy()
+        assert np.array_equal(np.isnan(d), np.isnan(rd)), f"{name}: NaN at other places"
+        atol = 0.0
+        if metric == "dot-product":
+            atol = 1e-7 * float(qn.max() * norms.max())
+        sorted_topk_agree(ids.cpu().numpy(), d, rids.cpu().numpy(), rd, rtol=1e-5, atol=atol)
+        fin = np.isfinite(rd)
+        err = float(np.abs(d[fin] - rd[fin]).max()) if fin.any() else 0.0
+        rel = float((np.abs(d[fin] - rd[fin]) / np.maximum(np.abs(rd[fin]), 1e-30)).max()) \
+            if fin.any() else 0.0
+        ms = cuda_ms(lambda: kernel(m, D, *args, *common), 10)
+        plain_ms = cuda_ms(lambda: plain(m, D, *args, *common), 3)
+        es = rows.element_size()
+        nbytes = in_bytes + n_valid * (D * es + (4 if metric == "cosine" else 0)) \
+            + b * (D + 1) * 4 + b * k * 20
+        bd = bound(nbytes, (3 if metric == "euclidean" else 2) * n_valid * D, "f32")
+        shape = dict(metric=metric, rows=dtype, B=b, n2=n2, c=c, k=k, live=share,
+                     valid_candidates=n_valid, ms=ms, plain_ms=plain_ms, **bd,
+                     max_abs_err=err, max_rel_err=rel, launches=1)
+        r = rec[name]
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=plain_ms, **bd, library_ms=None,
+                     library="none: no single call computes cut + gather + re-score + top-k")
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        r.setdefault("shapes", []).append(shape)
+        say("parity", f"rescore {name} {metric} {dtype} rows B={b} n2={n2} c={c} k={k} live "
+            f"{share}: ids tie-aware equal, max rel err {rel:.3g} (abs {err:.3g}), kernel "
+            f"{ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), plain "
+            f"{plain_ms:.4f} ms, launches 1")
+        del ids, rids, cand, args
+    del x, rows_of, norms_of, p2s, s2i
 
 
 def l2_latency_ns(tv, n=1 << 19, steps=1 << 19):
@@ -734,7 +874,7 @@ def exact_slice(tmp, x, queries, batches, rec):
 
     from arroy_tpu_torch import Database, Reader, Writer
     from arroy_tpu_torch.device import DeviceIndex
-    from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs
+    from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, rescore as rs
     from arroy_tpu_torch.search import make_exact_fn
 
     db = Database(f"{tmp}/euclid", device="cuda")
@@ -758,9 +898,14 @@ def exact_slice(tmp, x, queries, batches, rec):
     outs = {}
     for prec in ("f32x1", "bf16", "int8"):
         s = r.searcher(K, engine="exact", precision=prec)
+        entry = "rescore_topk" if prec == "f32x1" else "cut_rescore"
+        n0 = dict(rs.launches)
         outs[prec] = run_batches(s, batches, prec)
         if prec != "f32x1":
             assert s.route == "fused_select", s.route
+        # kernel 5 once a batch (and the warm-up), the other entry never
+        assert rs.launches == {**n0, entry: n0[entry] + len(batches) + 1}, rs.launches
+        say("slice", f"{prec}: kernel 5 ({entry}) launched once a batch")
     ref_ids = outs["f32x1"][0]
     for prec in ("bf16", "int8"):
         rc = recall_of(outs[prec][0], ref_ids)
@@ -1296,7 +1441,7 @@ def large_slice(rec):
 
     from arroy_tpu_torch import Database, Reader, Writer, search
     from arroy_tpu_torch.models import items
-    from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs
+    from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, rescore as rs
     from arroy_tpu_torch.ops.binary import unpack_bits
 
     t_phase = time.perf_counter()
@@ -1336,6 +1481,14 @@ def large_slice(rec):
         out = fn()
         return out, search.scan_calls[key] - n0
 
+    def once_a_batch(entry, fn):
+        """`fn()`, which serves N_LARGE_BATCHES and a warm-up, must launch
+        kernel 5's `entry` once for each and its other entry never."""
+        n0 = dict(rs.launches)
+        out = fn()
+        assert rs.launches == {**n0, entry: n0[entry] + N_LARGE_BATCHES + 1}, rs.launches
+        return out
+
     def build(metric):
         nonlocal db
         db = Database(None, device="cuda")
@@ -1357,9 +1510,10 @@ def large_slice(rec):
     db = None
     r = build("euclidean")
     s = r.searcher(K, engine="exact", precision="f32x1")
-    (ref_ids, ref_d), n = scans("exact_scan", lambda: serve(s, "f32x1 scan"))
+    (ref_ids, ref_d), n = once_a_batch(
+        "rescore_topk", lambda: scans("exact_scan", lambda: serve(s, "f32x1 scan")))
     assert n == N_LARGE_BATCHES + 1, f"f32x1 streamed {n} batches"
-    with uncounted(fs.launches, bk.launches):
+    with uncounted(fs.launches, bk.launches, rs.launches):
         (mids, md), n = scans("exact_scan", lambda: serve(s, f"f32x1 matrix B={B_MATRIX}", sub))
     assert n == 0, "a sub-batch streamed"
     tie_aware_equal(ref_ids, ref_d, mids, md, rtol=1e-5)
@@ -1379,7 +1533,8 @@ def large_slice(rec):
     for prec in ("bf16", "int8"):
         s = r.searcher(K, engine="exact", precision=prec)
         assert s.route == "fused_select", s.route
-        (ids, _), n = scans("exact_scan", lambda: serve(s, f"{prec} fused"))
+        (ids, _), n = once_a_batch(
+            "cut_rescore", lambda: scans("exact_scan", lambda: serve(s, f"{prec} fused")))
         assert n == 0
         routes[f"{prec} fused"]["recall"] = rc = recall_of(ids, ref_ids)
         say("large", f"{prec} fused: recall@{K} vs f32x1 {rc:.4f}")
@@ -1403,7 +1558,8 @@ def large_slice(rec):
         s = r.searcher(K, engine="exact", precision=prec)
         search._FUSED_TABLE_BYTES = cap
         assert s.route == "unfused", s.route
-        (ids, _), n = scans("exact_scan", lambda: serve(s, f"{prec} scan"))
+        (ids, _), n = once_a_batch(
+            "rescore_topk", lambda: scans("exact_scan", lambda: serve(s, f"{prec} scan")))
         assert n == N_LARGE_BATCHES + 1, f"{prec} streamed {n} batches"
         routes[f"{prec} scan"]["recall"] = rc = recall_of(ids, ref_ids)
         say("large", f"{prec} scan (bf16 rows): recall@{K} vs f32x1 {rc:.4f}")
@@ -1429,7 +1585,7 @@ def large_slice(rec):
     assert per_batch >= 4, f"kernel 2 launched {per_batch} times a batch"
     routes["BQ scan"]["kernel2_launches_a_batch"] = per_batch
     # the path's launches, read before the comparisons and timing below
-    path_launches = {**dict(fs.launches), **dict(bk.launches)}
+    path_launches = {**dict(fs.launches), **dict(bk.launches), **dict(rs.launches)}
     with uncounted(bk.launches):
         (mat, n) = scans("bq_scan", lambda: serve(s, f"BQ matrix B={B_MATRIX}", sub))
     assert n == 0
@@ -1832,11 +1988,11 @@ def operator_slice(tmp):
     from arroy_tpu_torch.metrics import Euclidean
     from arroy_tpu_torch.models import items
     from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
-    from arroy_tpu_torch.ops import traverse as tv
+    from arroy_tpu_torch.ops import rescore as rs, traverse as tv
     from arroy_tpu_torch.utils import profiling
     from arroy_tpu_torch.version import CURRENT_VERSION
 
-    counters = (fs.launches, bk.launches, gs.launches, tv.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches)
 
     def counts():
         return {k: v for c in counters for k, v in c.items()}
@@ -1988,7 +2144,7 @@ def operator_slice(tmp):
     del hr, hdb, s
     part_done("c", t0, c0)
 
-    # (d) one exact batch inside the profiler: kernel 1 by name in the trace
+    # (d) one exact batch inside the profiler: kernels 1 and 5 by name in the trace
     t0, c0 = time.perf_counter(), counts()
     odb = Database(old)
     s = Reader.open(odb.read(), 0, odb).searcher(K)
@@ -1999,11 +2155,12 @@ def operator_slice(tmp):
     (name,) = os.listdir(f"{tmp}/trace")
     with open(f"{tmp}/trace/{name}") as f:
         text = f.read()
-    hits = [e for e in prof.key_averages() if "fused_select_kernel" in e.key]
     named = sorted({e.key[:40] for e in prof.key_averages() if e.self_device_time_total > 0})
-    assert "fused_select_kernel" in text and hits, f"the trace does not name kernel 1: {named}"
-    say("profile", f"{name}: {len(text) / 1e6:.2f} MB; kernel 1 in it as "
-        f"{hits[0].key[:60]!r}, {hits[0].count} call(s)")
+    for kernel, fn in (("kernel 1", "fused_select_kernel"), ("kernel 5", "rescore_kernel")):
+        hits = [e for e in prof.key_averages() if fn in e.key]
+        assert fn in text and hits, f"the trace does not name {kernel}: {named}"
+        say("profile", f"{name}: {len(text) / 1e6:.2f} MB; {kernel} in it as "
+            f"{hits[0].key[:60]!r}, {hits[0].count} call(s)")
     part_done("d", t0, c0)
 
     rec["phase10_s"] = time.perf_counter() - t_phase
@@ -2030,7 +2187,7 @@ def multidevice_slice(rec):
     from arroy_tpu_torch import Database, Reader, Writer, entry, probe
     from arroy_tpu_torch.models import items
     from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
-    from arroy_tpu_torch.ops import traverse as tv
+    from arroy_tpu_torch.ops import rescore as rs, traverse as tv
     from arroy_tpu_torch.parallel.forest import ShardedForestIndex
     from arroy_tpu_torch.parallel.mesh import ShardedExactIndex, _host_queries, make_mesh
 
@@ -2038,7 +2195,7 @@ def multidevice_slice(rec):
     items._DEVICE_MIRROR.clear()
     torch.cuda.empty_cache()
     out = {}
-    counters = (fs.launches, bk.launches, gs.launches, tv.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches)
     total = {k: 0 for c in counters for k in c}
 
     def reset():
@@ -2453,7 +2610,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     from arroy_tpu_torch.ops import _build, bq_kernels as bk, fused_select as fs, gather_score as gs
-    from arroy_tpu_torch.ops import traverse as tv
+    from arroy_tpu_torch.ops import rescore as rs, traverse as tv
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2511,9 +2668,18 @@ def main() -> int:
     rec["traverse"] = dict(source="arroy_tpu_torch/csrc/traverse.cu",
                            replaces="arroy_tpu/search.py:140 _traverse_impl (lax.while_loop, no "
                                     "Pallas kernel)")
+    # kernel 5: stage 2 of the exact routes (XLA's fusion in the JAX package)
+    rec["cut_rescore"] = dict(source="arroy_tpu_torch/csrc/rescore.cu",
+                              replaces="arroy_tpu/search.py:1702-1719 stage 2 of _exact_fused_impl "
+                                       "(XLA fusion, no Pallas kernel)")
+    rec["rescore_topk"] = dict(source="arroy_tpu_torch/csrc/rescore.cu",
+                               replaces="arroy_tpu/search.py:1512 re-score tail of "
+                                        "_exact_f32_direct_impl, and :1266, :1312 (XLA fusion, no "
+                                        "Pallas kernel)")
     for inst, ops in mma_ops.items():
         rec[inst]["tensor_core_ops"] = ops
     kernel_parity(dev, rec)
+    rescore_parity(dev, rec)
     say("time", f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4-5. the exact slice (main path: counts from here)
@@ -2521,13 +2687,15 @@ def main() -> int:
     x = make_corpus(rng, M + BATCH * N_BATCHES, D)
     x, queries = x[:M], x[M:]
     batches = [queries[i * BATCH:(i + 1) * BATCH] for i in range(N_BATCHES)]
-    for k in fs.launches:
-        fs.launches[k] = 0
+    for c in (fs.launches, rs.launches):
+        for k in c:
+            c[k] = 0
     bk.launches["bq_hamming"] = 0
     tv.launches["traverse"] = 0
     with tempfile.TemporaryDirectory() as tmp:
         exact_slice(tmp, x, queries, batches, rec)
-    launches = {**dict(fs.launches), **dict(bk.launches), **dict(tv.launches)}
+    launches = {**dict(fs.launches), **dict(bk.launches), **dict(tv.launches),
+                **dict(rs.launches)}
     say("launches", f"exact path: {json.dumps(launches)}")
     say("time", f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
     del x, queries, batches
@@ -2547,8 +2715,9 @@ def main() -> int:
     say("time", f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # 8. large-corpus exact serving (its own path: counts from here)
-    for k in fs.launches:
-        fs.launches[k] = 0
+    for c in (fs.launches, rs.launches):
+        for k in c:
+            c[k] = 0
     bk.launches["bq_hamming"] = 0
     large_launches, base, queries = large_slice(rec)
     say("launches", f"large-corpus path: {json.dumps(large_launches)}")
@@ -2559,7 +2728,7 @@ def main() -> int:
 
     # 9. the incremental build on phase 8's euclidean index (no kernel of
     # its own: routing and the grow are plain PyTorch, so no count moves)
-    counters = (fs.launches, bk.launches, gs.launches, tv.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches)
     with uncounted(*counters):
         for c in counters:
             for k in c:
@@ -2578,7 +2747,7 @@ def main() -> int:
     say("launches", f"operator path: {json.dumps(p10)}")
     for name in rec:
         rec[name]["phase10_launches"] = p10[name]
-    for kernel in ("fused_select", "bq_hamming", "gather_score", "traverse"):
+    for kernel in ("fused_select", "bq_hamming", "gather_score", "traverse", "cut_rescore"):
         assert sum(n for k, n in p10.items() if k.startswith(kernel)) > 0, \
             f"{kernel} never launched on the operator path"
     say("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")

@@ -16,8 +16,9 @@ Builds `chip_smoke.py`'s two configurations with the PyTorch port
 For each searcher it times the 8 batches with the host clock around work
 that ends in `torch.cuda.synchronize()` (no profiler), then profiles the
 same batches with `torch.profiler` and prints the device time by kernel
-(device-side events only), the device-busy total and the idle share
-(1 - busy / unprofiled wall).
+(device-side events only; the hand kernels tagged "[kernel N]", so the
+exact searchers name kernel 1 and kernel 5, their stage 2), the
+device-busy total and the idle share (1 - busy / unprofiled wall).
 
 Run from the repository root on a machine with a card, naming the
 slices to profile (all three by default):
@@ -44,12 +45,18 @@ from chip_smoke import (  # noqa: E402
 )
 
 N_BATCHES = 8
+#: the hand kernels' CUDA function names, as the consumer lines name them
+HAND_KERNELS = {"fused_select_kernel": "kernel 1", "hamming_kernel": "kernel 2",
+                "gather_score_kernel": "kernel 3", "traverse_kernel": "kernel 4",
+                "rescore_kernel": "kernel 5"}
 PROBE_SEARCH_K = 4000
 TRAVERSAL_SEARCH_K = (2000, 4000, 8000)
 SLICES = ("exact", "probe", "traversal")
 
 
-def profile(label: str, s, batches) -> None:
+def profile(label: str, s, batches) -> dict:
+    """Print the searcher's wall, device time by kernel and idle share over
+    `batches`; returns them (ms a batch, events a batch)."""
     dqs = [s.prepare_queries(b) for b in batches]
     for dq in dqs[:2]:  # warm-up
         s.device_fn(*dq)
@@ -77,8 +84,10 @@ def profile(label: str, s, batches) -> None:
           f"{launches:.0f} device events per batch")
     for e in sorted(ka, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         ms = e.self_device_time_total / 1e3
-        print(f"  {ms / n:8.3f} ms/batch  {100 * ms / busy:5.1f}%  x{e.count // n:<4d} {e.key[:90]}",
-              flush=True)
+        hand = next((f"[{k}] " for f, k in HAND_KERNELS.items() if f in e.key), "")
+        print(f"  {ms / n:8.3f} ms/batch  {100 * ms / busy:5.1f}%  x{e.count // n:<4d} "
+              f"{hand}{e.key[:90]}", flush=True)
+    return {"wall_ms": wall / n, "busy_ms": busy / n, "idle": 1 - busy / wall, "events": launches}
 
 
 def build(path, metric, x):

@@ -1248,3 +1248,188 @@ def test_cuda_prng_matches_cpu():
 
     for a, b in zip(draws(dev), draws("cpu")):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: the exact engine's stage 2 (key cut, re-score, top-k)
+# ---------------------------------------------------------------------------
+
+
+def _stage2_inputs(dev, metric, b, cap, d, dtype="f32", live_share=0.95, seed=0):
+    """Rows [cap, d] (f32 or bf16), norms, ids, a live mask, and queries
+    near rows (so the re-scored distances spread), all on `dev`."""
+    from arroy_tpu_torch.metrics import metric_by_name
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((cap, d)).astype(np.float32)
+    q = x[rng.integers(cap, size=b)] + 0.3 * rng.standard_normal((b, d)).astype(np.float32)
+    rows = torch.from_numpy(x)
+    if dtype == "bf16":
+        rows = rows.to(torch.bfloat16)
+    norms = np.linalg.norm(rows.float().numpy(), axis=1).astype(np.float32)
+    s2i = (rng.permutation(cap).astype(np.int64) * 3 + 7)
+    live = rng.random(cap) < live_share
+    return dict(
+        metric=metric_by_name(metric), dims=d, rows=rows.to(dev), norms=torch.from_numpy(norms).to(dev),
+        extras=torch.zeros(cap, device=dev), slot_to_id=torch.from_numpy(s2i).to(dev),
+        live=torch.from_numpy(live).to(dev), qv=torch.from_numpy(q).to(dev),
+        qn=torch.from_numpy(np.linalg.norm(q, axis=1).astype(np.float32)).to(dev),
+        qe=torch.zeros(b, device=dev), rng=rng,
+    )
+
+
+def _cut_inputs(s, b, n2, dead_share=0.05, ties=False):
+    """Kernel 1's outputs as the cut sees them: [B, n2] int32 keys (a share
+    dead, at or below DEAD_KEY_MAX) and distinct positions per query into a
+    table of Mp = cap rounded up to 256 rows; positions past cap alias
+    slot 0 and carry dead keys, as padding does.  With `ties`, every query
+    reads the same positions and each run of 8 of them shares one key and
+    one slot, so the c-th key is tied and every choice among the ties
+    gives the same candidates."""
+    rng, dev, cap = s["rng"], s["qv"].device, s["rows"].shape[0]
+    mp = -(-cap // 256) * 256
+    p2s = np.zeros(mp, np.int64)
+    p2s[:cap] = rng.permutation(cap)
+    keys = rng.integers(DEAD_KEY_MAX + 1, 2**31, size=(b, n2), dtype=np.int64)
+    dead = rng.random((b, n2)) < dead_share
+    keys[dead] = DEAD_KEY_MAX - rng.integers(0, 1 << 20, size=int(dead.sum()))
+    off = np.zeros((b, 1), np.int64) if ties else rng.integers(mp, size=(b, 1))
+    idxp = (off + np.arange(n2)[None, :] * 7919) % mp
+    if ties:
+        run = (np.arange(n2) // 8) * 8
+        keys = keys[:, run]
+        p2s[idxp[0]] = p2s[idxp[0, run]]
+    keys[idxp >= cap] = DEAD_KEY_MAX
+    keys[-1] = DEAD_KEY_MAX  # an all-dead query
+    return (torch.from_numpy(np.ascontiguousarray(keys, np.int32)).to(dev),
+            torch.from_numpy(idxp.astype(np.int32)).to(dev), torch.from_numpy(p2s).to(dev))
+
+
+def _check_stage2(entry, s, k, c, *args, normalize=True):
+    """Kernel 5 against its plain version on one input: launched once, ids
+    tie-aware equal and distances within rtol 1e-5 (f32 sums in another
+    order; atol 1e-6, or for a dot product, which cancels, 1e-7 of its
+    Σ|x·q| <= |x|·|q|), NaN (or +inf raw) at the same places."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    common = (s["rows"], s["norms"], s["extras"], s["slot_to_id"], s["qv"], s["qn"], s["qe"])
+    kernel, plain = (rs.cut_rescore, rs.cut_rescore_reference) if entry == "cut" else (
+        rs.rescore_topk, rs.rescore_topk_reference)
+    name = "cut_rescore" if entry == "cut" else "rescore_topk"
+    pre = (k, c) if entry == "cut" else (k,)
+    n0 = rs.launches[name]
+    ids, d = kernel(s["metric"], s["dims"], *pre, *args, *common, normalize=normalize)
+    torch.cuda.synchronize()
+    assert rs.launches[name] == n0 + 1
+    rids, rd = plain(s["metric"], s["dims"], *pre, *args, *common, normalize=normalize)
+    assert ids.shape == rids.shape == (s["qv"].shape[0], k) and ids.dtype == torch.int64
+    d, rd = d.cpu().numpy(), rd.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(d), np.isnan(rd))
+    np.testing.assert_array_equal(np.isinf(d), np.isinf(rd))
+    # a raw +inf is a slot with no valid candidate: its id is unspecified
+    fd, frd = (np.where(np.isinf(a), np.nan, a) for a in (d, rd))
+    atol = 1e-6
+    if s["metric"].name == "dot-product":
+        atol = max(atol, 1e-7 * float(s["qv"].norm(dim=1).max() * s["norms"].max()))
+    tie_aware_equal(ids.cpu().numpy(), fd, rids.cpu().numpy(), frd, rtol=1e-5, atol=atol)
+    return ids, d
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot-product"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,n2,c,k", [
+    (2048, 784, 32, 10),    # the exact slice's main shape (100k items)
+    (2048, 7824, 128, 10),  # 1M items
+    (64, 32768, 512, 100),  # the 3 GiB table cap
+    (16, 20000, 4096, 1),   # past SMEM_CANDIDATES: the scratch buffer
+])
+def test_cuda_cut_rescore_matches_plain(metric, dtype, b, n2, c, k):
+    dev = require_cuda()
+    s = _stage2_inputs(dev, metric, b, 100_000, 768, dtype)
+    _check_stage2("cut", s, k, c, *_cut_inputs(s, b, n2), s["live"])
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot-product"])
+@pytest.mark.parametrize("d", [5, 33, 100, 768])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_cuda_cut_rescore_widths_and_ties(metric, d, k):
+    """Row widths off the 16-byte loads (5, 33: one element a load; 100 f32
+    is 25 vectors), runs of equal keys across the c-th key, a filtered
+    live mask (a fifth live, so some queries have fewer than k valid), raw
+    distances too."""
+    dev = require_cuda()
+    s = _stage2_inputs(dev, metric, 96, 5000, d, live_share=0.2, seed=d + k)
+    c = max(2 * k, 32)
+    keys, idxp, p2s = _cut_inputs(s, 96, 512, dead_share=0.3, ties=True)
+    for normalize in (True, False):
+        _, dist = _check_stage2("cut", s, k, c, keys, idxp, p2s, s["live"], normalize=normalize)
+    assert np.isinf(dist[-1]).all(), "the all-dead query found a candidate"
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot-product"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,c,k", [
+    (2048, 40, 10),    # f32x1 at k = 10
+    (2048, 128, 10),   # the scan and the f32 route at k = 10
+    (256, 512, 100),
+    (32, 8192, 1000),  # next_pow2(8k) at count 1000: the scratch buffer
+    (4, 30_000, 1),    # f32x1 past count = cap / 4: the whole corpus
+])
+def test_cuda_rescore_topk_matches_plain(metric, dtype, b, c, k):
+    dev = require_cuda()
+    s = _stage2_inputs(dev, metric, b, 30_000, 768, dtype, live_share=0.9)
+    rng = s["rng"]
+    cand = np.stack([rng.choice(30_000, c, replace=False) for _ in range(b)])
+    valid = s["live"].cpu().numpy()[cand] & (rng.random((b, c)) < 0.95)
+    valid[-1] = False  # an all-dead query
+    _check_stage2("list", s, k, c, torch.from_numpy(cand).to(dev), torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("metric,precision,route,entry", [
+    ("euclidean", "int8", "fused_select", "cut_rescore"),
+    ("cosine", "bf16", "fused_select", "cut_rescore"),
+    ("dot-product", "f32x1", "f32x1", "rescore_topk"),
+    ("euclidean", "f32", "f32", "rescore_topk"),
+])
+def test_cuda_searchers_launch_kernel5_once_a_batch(tmp_path, metric, precision, route, entry):
+    """Each exact route ends in one launch of kernel 5 a batch, and answers
+    as the same index searched on the CPU (f32 routes tie-aware at rtol
+    1e-5; fused routes recall@10 >= 0.99)."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    gr, cr, q = _traversal_pair(tmp_path, metric, m=20_000, d=64)
+    gs_, cs_ = (r.searcher(10, engine="exact", precision=precision) for r in (gr, cr))
+    assert gs_.route == route
+    n0 = dict(rs.launches)
+    for _ in range(3):
+        got = _result_arrays(gs_.device_fn(*gs_.prepare_queries(q)))
+    assert rs.launches == {**n0, entry: n0[entry] + 3}
+    want = _result_arrays(cs_.device_fn(*cs_.prepare_queries(q)))
+    if route == "fused_select":
+        assert recall(got[0], want[0]) >= 0.99
+    else:
+        tie_aware_equal(*got, *want, rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_kernel5_rejects_bad_inputs():
+    from arroy_tpu_torch.metrics import metric_by_name
+    from arroy_tpu_torch.ops import rescore as rs
+
+    dev = require_cuda()
+    s = _stage2_inputs(dev, "euclidean", 8, 1000, 16)
+    keys, idxp, p2s = _cut_inputs(s, 8, 64)
+    common = (s["rows"], s["norms"], s["extras"], s["slot_to_id"], s["qv"], s["qn"], s["qe"])
+    n0 = dict(rs.launches)
+    with pytest.raises(ValueError, match="metric"):
+        rs.cut_rescore(metric_by_name("manhattan"), 16, 10, 32, keys, idxp, p2s, s["live"], *common)
+    with pytest.raises(ValueError, match="k = 40"):
+        rs.cut_rescore(s["metric"], 16, 40, 32, keys, idxp, p2s, s["live"], *common)
+    with pytest.raises(TypeError, match="int32"):
+        rs.cut_rescore(s["metric"], 16, 10, 32, keys.long(), idxp, p2s, s["live"], *common)
+    cand = torch.zeros((8, 32), dtype=torch.int64, device=dev)
+    valid = torch.ones((8, 32), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rescore_topk(s["metric"], 16, 10, cand.t().contiguous().t()[:, :32], valid, *common)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        rs.rescore_topk(s["metric"], 16, 10, cand, valid, s["rows"].half(), *common[1:])
+    assert rs.launches == n0
