@@ -5,9 +5,12 @@ first use into its own shared library under the git-ignored
 ``arroy_tpu_torch/_build/``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -split-compile=0 \
+         -o _build/lib<name>.so csrc/<name>.cu
 
 No PyTorch headers are included, so a build takes seconds, not minutes.
+`-split-compile=0` lets nvcc optimize a source's kernels on every core
+(`csrc/rescore.cu` instantiates 32 of them).
 A library is rebuilt when its source is newer.  `ptxas` register and
 shared-memory reports land in ``_build/<name>.log``.  A failed build
 raises: there is no fallback to another implementation.
@@ -27,7 +30,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-split-compile=0",
 ]
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -14,9 +14,11 @@ kernel for it.  Two entries:
   re-score → top-k.
 
 Both dispatch on where their tensors live: on a CUDA device they launch
-the hand-written kernel (`csrc/rescore.cu`: a CTA a query, a radix select
-for the cut, each candidate row read once from the corpus, a radix sort
-for the top-k, one launch a batch) or raise; on the CPU they run
+the hand-written kernel (`csrc/rescore.cu`, one launch a batch, each
+candidate row read once from the corpus) in the regime `_plan` picks from
+(B, c, n2, d, k): a warp a query for c <= `WARP_MAX_C` (every shape the
+main path sends), a CTA a query past it, or several CTAs a query where
+few queries bring many candidates; or they raise.  On the CPU they run
 `cut_rescore_reference` / `rescore_topk_reference`, the plain PyTorch
 versions (a [B, c, d] f32 gather, elementwise distance, `torch.topk`).
 Only the metrics whose distance the kernel computes are taken:
@@ -27,6 +29,7 @@ exactly to f32).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,12 +40,109 @@ _INF = float("inf")
 
 #: kernel launches on the card, per entry (test/smoke observability)
 launches = {"cut_rescore": 0, "rescore_topk": 0}
-#: candidates a query keeps in the kernel's shared memory (20 bytes each);
-#: a call with more gets a [B, 5c] int32 scratch buffer in device memory
+#: the plan of each entry's last launch (`Plan`, None before the first)
+last_plan = {"cut_rescore": None, "rescore_topk": None}
+#: block regime: candidates a query keeps in the kernel's shared memory
+#: (20 bytes each); a call with more gets a scratch buffer in device memory
 SMEM_CANDIDATES = 2048
+#: warp regime: the largest c (a warp sorts <= 512 composites in registers)
+WARP_MAX_C = 512
+#: warp regime: queries an SM at least (a warp each: fewer leave the SMs
+#: idle, and a CTA a query is faster)
+WARP_MIN_QUERIES = 7
+#: warp regime: a query's shared bytes past its query row (slots, distance
+#: keys, the select histogram: `kWarpExtra` in csrc/rescore.cu)
+WARP_SMEM_EXTRA = 5120
+#: warp regime: queries (warps) a CTA at most
+WARP_QUERIES = 8
+#: split regime: at least this many candidates and queries for at most
+#: SPLIT_MAX_SHARE of the SMs; then S CTAs a query, enough for SPLIT_FILL
+#: CTAs an SM
+SPLIT_MAX_SHARE = 0.75
+SPLIT_MIN_C = 2048
+SPLIT_FILL = 2
+#: split regime: columns a CTA re-scores at least
+SPLIT_MIN_COLUMNS = 256
+#: the largest dynamic shared memory a block may use (sm_90)
+MAX_SMEM = 232_448
+#: streaming multiprocessors of an H100 SXM (the plan's default)
+H100_SMS = 132
 #: the metrics the kernel computes -> its metric code
 METRICS = {"euclidean": 0, "cosine": 1, "dot-product": 2}
+REGIMES = {"warp": 0, "block": 1, "split": 2}
+#: block regime: past this many queries an SM (more than one wave), its
+#: registers are held to 4 CTAs an SM (more CTAs resident, fewer registers)
+BLOCK_CAP_QUERIES = 2
 _ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Plan(NamedTuple):
+    """How one call runs: `regime`, queries a CTA (`per_cta`, warp regime),
+    CTAs a query (`splits`, split regime), CTAs in all (`grid`), scratch
+    bytes a query (`stride`, 0 for none), whether it takes tickets, and
+    (block regime) whether its registers are held to 4 CTAs an SM."""
+
+    regime: str
+    per_cta: int
+    splits: int
+    grid: int
+    stride: int
+    tickets: bool
+    capped: bool = False
+
+    @property
+    def code(self) -> int:
+        """The C entries' regime argument."""
+        return 3 if self.capped else REGIMES[self.regime]
+
+
+def _plans(b: int, c: int, n2: int | None, d: int, k: int, sms: int = H100_SMS) -> dict:
+    """Every plan that can run a call with B = `b` queries, `c` candidates
+    each (cut from `n2` keys, or a list where `n2` is None), rows of `d`
+    and top `k`, by name: "warp" (c <= WARP_MAX_C and a query's row fits a
+    CTA's shared memory: a warp a query, up to WARP_QUERIES a CTA),
+    "block" and "block capped" (a CTA a query, with 20 · c bytes of
+    scratch a query, 16-byte aligned, past SMEM_CANDIDATES; capped: its
+    registers held to 4 CTAs an SM), and "split" (S CTAs a query, enough
+    for SPLIT_FILL an SM, each with SPLIT_MIN_COLUMNS columns or more, of
+    the c candidates or the n2 positions, and a scratch of 8 · (W + k)
+    bytes a query, W = c or n2; where S >= 2).  `_plan` picks one; the
+    A/B script and the card's tests force the others."""
+    plans = {}
+    per_warp = -(-d * 4 // 16) * 16 + WARP_SMEM_EXTRA
+    if c <= WARP_MAX_C and per_warp <= MAX_SMEM:
+        q = min(WARP_QUERIES, MAX_SMEM // per_warp)
+        plans["warp"] = Plan("warp", q, 1, -(-b // q), 0, False)
+    stride = 0 if c <= SMEM_CANDIDATES else -(-20 * c // 16) * 16
+    plans["block"] = Plan("block", 1, 1, b, stride, False)
+    plans["block capped"] = plans["block"]._replace(capped=True)
+    width = c if n2 is None else n2
+    s = min(-(-SPLIT_FILL * sms // max(b, 1)), -(-width // SPLIT_MIN_COLUMNS))
+    if s > 1:
+        plans["split"] = Plan("split", 1, s, b * s, 8 * (width + k), True)
+    return plans
+
+
+def _plan(b: int, c: int, n2: int | None, d: int, k: int, sms: int = H100_SMS) -> Plan:
+    """The plan of a call (`_plans`' arguments): warp from WARP_MIN_QUERIES
+    queries an SM; else split for c >= SPLIT_MIN_C and b <= SPLIT_MAX_SHARE
+    · sms (a CTA a query would leave SMs idle); else block, its registers
+    capped past BLOCK_CAP_QUERIES queries an SM."""
+    plans = _plans(b, c, n2, d, k, sms)
+    if "warp" in plans and b >= WARP_MIN_QUERIES * sms:
+        return plans["warp"]
+    if "split" in plans and c >= SPLIT_MIN_C and b <= SPLIT_MAX_SHARE * sms:
+        return plans["split"]
+    return plans["block capped" if b > BLOCK_CAP_QUERIES * sms else "block"]
+
+
+_sms: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
 
 
 # ---------------------------------------------------------------------------
@@ -105,21 +205,27 @@ def cut_rescore_reference(
 
 
 def _lib():
-    lib = _build.load("rescore")
+    return _bind(_build.load("rescore"))
+
+
+def _bind(lib):
+    """Set the C entries' types on a loaded `csrc/rescore.cu` library."""
     lib.cut_rescore.restype = ctypes.c_int
     lib.cut_rescore.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 9
+        + [ctypes.c_void_p]
     )
     lib.rescore_topk.restype = ctypes.c_int
     lib.rescore_topk.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+        + [ctypes.c_void_p]
     )
     return lib
 
 
-def _common(what, metric, k, c, rows, norms, slot_to_id, qv, qn, tensors):
+def _common(what, metric, k, c, n2, rows, norms, slot_to_id, qv, qn, tensors):
     """Check what both entries take; returns (metric code, row type, vec,
-    outputs, scratch)."""
+    outputs, the plan, and its scratch and tickets, or None)."""
     if rows.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {rows.device}")
     if metric.name not in METRICS:
@@ -143,14 +249,21 @@ def _common(what, metric, k, c, rows, norms, slot_to_id, qv, qn, tensors):
     tensors = (rows, norms, slot_to_id, qv, qn) + tensors
     if any(t.device != rows.device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{what}: tensors must be contiguous on one device")
-    scratch = None
-    if c > SMEM_CANDIDATES:
-        scratch = torch.empty((b, 5 * c), dtype=torch.int32, device=rows.device)
+    plan = _plan(b, c, n2, d, k, _sm_count(rows.device))
+    scratch = tickets = None
+    if plan.stride:
+        scratch = torch.empty(b * plan.stride, dtype=torch.uint8, device=rows.device)
+    if plan.tickets:
+        tickets = torch.zeros(b, dtype=torch.int32, device=rows.device)
     es = rows.element_size()
     vec = int((d * es) % 16 == 0 and rows.data_ptr() % 16 == 0)
     ids = torch.empty((b, k), dtype=torch.int64, device=rows.device)
     out = torch.empty((b, k), dtype=torch.float32, device=rows.device)
-    return METRICS[metric.name], _ROW_TYPES[rows.dtype], vec, ids, out, scratch
+    return METRICS[metric.name], _ROW_TYPES[rows.dtype], vec, ids, out, plan, scratch, tickets
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def cut_rescore(
@@ -180,8 +293,8 @@ def cut_rescore(
         raise TypeError("cut_rescore: pos_to_slot must be int64 and live bool [cap]")
     if b != qv.shape[0]:
         raise ValueError(f"cut_rescore: {b} key rows for {qv.shape[0]} queries")
-    code, row_type, vec, ids, out, scratch = _common(
-        "cut_rescore", metric, k, cw, rows, norms, slot_to_id, qv, qn,
+    code, row_type, vec, ids, out, plan, scratch, tickets = _common(
+        "cut_rescore", metric, k, cw, n2, rows, norms, slot_to_id, qv, qn,
         (keys, idxp, pos_to_slot, live))
     if b == 0:
         return ids, out
@@ -191,10 +304,11 @@ def cut_rescore(
             code, row_type, vec, rows.data_ptr(), norms.data_ptr(), slot_to_id.data_ptr(),
             qv.data_ptr(), qn.data_ptr(), keys.data_ptr(), idxp.data_ptr(),
             pos_to_slot.data_ptr(), live.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, rows.shape[1], n2, cw, k,
-            int(normalize), stream)
+            _ptr(scratch), _ptr(tickets), plan.stride, b, rows.shape[1], n2, cw, k,
+            int(normalize), plan.code, plan.per_cta, plan.splits, stream)
     _build.check(rc, "cut_rescore")
     launches["cut_rescore"] += 1
+    last_plan["cut_rescore"] = plan
     return ids, out
 
 
@@ -216,8 +330,8 @@ def rescore_topk(
         raise TypeError("rescore_topk: cand must be int64 and valid bool, of one shape")
     if b != qv.shape[0]:
         raise ValueError(f"rescore_topk: {b} candidate rows for {qv.shape[0]} queries")
-    code, row_type, vec, ids, out, scratch = _common(
-        "rescore_topk", metric, k, c, rows, norms, slot_to_id, qv, qn, (cand, valid))
+    code, row_type, vec, ids, out, plan, scratch, tickets = _common(
+        "rescore_topk", metric, k, c, None, rows, norms, slot_to_id, qv, qn, (cand, valid))
     if b == 0:
         return ids, out
     with torch.cuda.device(rows.device):
@@ -225,8 +339,9 @@ def rescore_topk(
         rc = _lib().rescore_topk(
             code, row_type, vec, rows.data_ptr(), norms.data_ptr(), slot_to_id.data_ptr(),
             qv.data_ptr(), qn.data_ptr(), cand.data_ptr(), valid.data_ptr(), ids.data_ptr(),
-            out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, rows.shape[1],
-            c, k, int(normalize), stream)
+            out.data_ptr(), _ptr(scratch), _ptr(tickets), plan.stride, b, rows.shape[1], c, k,
+            int(normalize), plan.code, plan.per_cta, plan.splits, stream)
     _build.check(rc, "rescore_topk")
     launches["rescore_topk"] += 1
+    last_plan["rescore_topk"] = plan
     return ids, out

@@ -249,6 +249,36 @@ def _fused_queries(qv, d_pad: int, int8: bool):
     return q.contiguous(), qsc.contiguous()
 
 
+def _quantized_rows(rows, int8: bool, chunk: int = _EXACT_SCAN_CHUNK):
+    """The unfused route's corpus copy, made `chunk` rows at a time (no
+    f32 temporary the size of the corpus): int8 rows under a per-row
+    max-abs scale, zero-padded to a multiple of 8 rows and columns (the
+    int8 GEMM's shape rule), with the scales [cap] f32; or bf16 rows."""
+    cap, d = rows.shape
+    if not int8:
+        return (rows.to(torch.bfloat16),)
+    q = torch.zeros((-(-cap // 8) * 8, -(-d // 8) * 8), dtype=torch.int8, device=rows.device)
+    iscale = torch.empty(cap, dtype=torch.float32, device=rows.device)
+    for s in range(0, cap, chunk):
+        rf = rows[s : s + chunk].float()
+        mx = torch.amax(torch.abs(rf), dim=1)
+        sc = torch.where(mx > 0, mx / 127.0, 1.0)
+        q[s : s + len(rf), :d] = torch.clamp(torch.round(rf / sc[:, None]), -127, 127).to(torch.int8)
+        iscale[s : s + len(rf)] = sc
+    return q, iscale
+
+
+def _int8_dots(qi8, rows_i8):
+    """[B, cap8] int32 dots of int8 queries [B, d] and the padded int8 rows
+    [cap8, d8], accumulated in int32 (exact).  The queries are zero-padded
+    to d8 columns and to at least 17 rows, the card's int8 GEMM shape rule."""
+    b, d = qi8.shape
+    pad_rows = max(17 - b, 0)
+    if pad_rows or d != rows_i8.shape[1]:
+        qi8 = torch.nn.functional.pad(qi8, (0, rows_i8.shape[1] - d, 0, pad_rows))
+    return torch._int_mm(qi8, rows_i8.t())[:b]
+
+
 def _exact_fused(metric, dims, k, c, int8, tables, rows, norms, extras, slot_to_id, live, qv, qn, qe):
     """Fused-select stage 1 (kernel 1) + key cut, exact re-score and top-k
     (kernel 5, `cut_rescore`) (`_exact_fused_impl`)."""
@@ -551,28 +581,22 @@ def make_exact_fn(
         if _streams(int(qv.shape[0]), idx.cap):
             return scan(qv, qn, qe, torch.bfloat16)
         if not quant:  # the quantized rows, made on the first batch under the budget
-            rf = rows.float()
-            if int8:
-                mx = torch.amax(torch.abs(rf), dim=1)
-                iscale = torch.where(mx > 0, mx / 127.0, 1.0)
-                quant.extend((torch.clamp(torch.round(rf / iscale[:, None]), -127, 127).double(), iscale))
-            else:
-                quant.append(rf.to(torch.bfloat16).float())
-        rows_q = quant[0]
+            quant.extend(_quantized_rows(rows, int8))
         if int8:
-            iscale = quant[1]
+            rows_i8, iscale = quant
             qmax = torch.amax(torch.abs(qv), dim=1)
             qsc = torch.where(qmax > 0, qmax / 127.0, 1.0)
-            qi8 = torch.clamp(torch.round(qv / qsc[:, None]), -127, 127)
-            # int8 dots in float64: exact, and defined on every device
-            doti = (qi8.double() @ rows_q.T).to(torch.int32)
+            qi8 = torch.clamp(torch.round(qv / qsc[:, None]), -127, 127).to(torch.int8)
+            doti = _int8_dots(qi8, rows_i8)[:, : idx.cap]
             dots = doti.to(torch.float32) * (qsc[:, None] * iscale[None, :])
         else:
-            dots = _f32_matmul(qv.to(torch.bfloat16).float(), rows_q)
+            dots = _f32_matmul(qv, quant[0])
         score = _score(metric, dots, x2, norms)
         return _two_stage(
             metric, dims, k, c, score, rows, norms, extras, s2i, live, qv, qn, qe
         )
+
+    unfused_fn.quant = quant  # (rows_i8, iscale) or (rows_bf16,), for inspection
 
     return unfused_fn, "unfused"
 

@@ -26,11 +26,13 @@ exits non-zero:
    budget beside its bytes bound and the dependent-read chain of the
    query with the most pops (one L2 read a pop, the latency measured by a
    pointer chase.  Kernel 5 (the exact routes' stage 2: key cut, re-score,
-   top-k) gets a `[parity] rescore` line a shape (`RESCORE_CASES`: the
-   main path's cut and f32x1 list, 1M's cut, c up to 8,192 and the whole
-   corpus, k = 1 to 25,000, bf16 rows, a filtered live mask, an all-dead
-   query): ids tie-aware equal, the largest relative error, kernel ms
-   beside its bytes bound and the plain version's ms;
+   top-k) gets a `[parity] rescore` line a shape, naming the regime
+   the wrapper launched (`ops.rescore.last_plan`; `RESCORE_CASES`: the main path's cut and
+   f32x1 list, 1M's cut, each regime's boundaries in c and B, c up to
+   8,192 and the whole corpus, k = 1 to 25,000, bf16 rows, rows of 5 and
+   33, a filtered live mask, ties at the c-th key, cosine over zero rows,
+   an all-dead query): ids tie-aware equal, the largest relative error,
+   kernel ms (device time) beside its bytes bound and the plain version's ms;
 4. slice — the bench configuration (100,000 x 768 clustered corpus,
    euclidean, 10 trees): add, build, commit to disk, reopen, validate,
    then exact search at f32x1 / bf16 / int8 on 4 batches of 2048
@@ -75,7 +77,10 @@ exits non-zero:
    256 (the matrix path) and a float64 brute force; bf16 and int8 run
    fused (kernel 1), then streamed (the fused-table cap lowered for that
    searcher), each at recall@10 >= 0.99 against f32x1, each route with
-   kernel 5 once a batch; kernel 1 held
+   kernel 5 once a batch; the same unfused searchers on sub-batches of
+   256 (the matrix: int8 dots on an int8 copy of the corpus, or bf16 on a
+   bf16 copy), with the copy's GB, ms a batch and recall@10 >= 0.99
+   against f32x1; kernel 1 held
    against its plain version on each fused searcher's own tables (Mp =
    1,001,472) and one batch's queries; the BQ scan (kernel 2 once a
    chunk) streams and equals the matrix on sub-batches of 256, and
@@ -171,6 +176,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 
@@ -579,26 +585,66 @@ def kernel_parity(dev, rec):
                 f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}")
 
 
-#: kernel 5's parity shapes: (entry, metric, rows, B, n2 (cut) or None, c, k,
-#: live share).  The exact slice's main shapes first (the fused cut at
-#: 100,000 items, f32x1's list of 4k), timed; then 1M's cut (c = 128), the
-#: scan's and f32's list (128), the 3 GiB table cap's cut (c = 512), a
-#: filtered live mask, bf16 rows, k = 1, 100 and 1000, the other metrics,
-#: and past `SMEM_CANDIDATES` (the scratch buffer): c = 4,096, 8,192 and
-#: f32x1's whole corpus at count = cap / 4.
+class RescoreCase(NamedTuple):
+    """One of kernel 5's parity shapes: the entry ("cut" or "list"), metric,
+    row type, B, the key row's width n2 (cut) or None, c, k, the live share,
+    the row width and, for the cut, whether each run of 8 positions shares
+    one key and one slot (so the c-th key is tied)."""
+
+    entry: str
+    metric: str
+    rows: str
+    b: int
+    n2: int | None
+    c: int
+    k: int
+    live: float = 0.95
+    d: int = D
+    ties: bool = False
+
+
+#: kernel 5's parity shapes.  The exact slice's main shapes first (the
+#: fused cut at 100,000 items, f32x1's list of 4k), timed; the cut at
+#: batches of 924 (the warp regime's least), 923, 256 and 1; then 1M's cut
+#: (c = 128, also with runs of equal keys across the c-th), the scan's and
+#: f32's list (128), the warp regime's sorts of 256 and 512 (c = 129, 256,
+#: 512) and the block regime's first c (513), the 3 GiB table cap's cut
+#: (c = 512 at B = 256: the block regime), a
+#: filtered live mask, bf16 rows, k = 1, 100 and 1000, the other metrics
+#: (cosine over the corpus's zero rows), rows of 5 and 33 (no 16-byte
+#: loads), and past `SMEM_CANDIDATES` and into the split regime: c = 2,048
+#: at B = 99 (split), 100, 264 and 265 (block, its registers capped past
+#: 264), c = 4,096, 8,192 and f32x1's whole corpus at count = cap / 4, and
+#: B = 1.
 RESCORE_CASES = (
-    ("cut", "euclidean", "f32", BATCH, 784, 32, K, 0.95),
-    ("list", "euclidean", "f32", BATCH, None, 40, K, 0.95),
-    ("cut", "euclidean", "bf16", BATCH, 784, 32, K, 0.95),
-    ("cut", "euclidean", "f32", BATCH, 7824, 128, K, 0.95),
-    ("list", "euclidean", "f32", BATCH, None, 128, K, 0.95),
-    ("cut", "euclidean", "f32", 256, 32768, 512, 100, 0.95),
-    ("cut", "euclidean", "f32", BATCH, 784, 32, K, 0.05),
-    ("cut", "cosine", "f32", BATCH, 784, 32, 1, 0.95),
-    ("list", "dot-product", "bf16", BATCH, None, 40, K, 0.95),
-    ("cut", "euclidean", "bf16", 16, 20000, 4096, 1, 0.95),
-    ("list", "euclidean", "f32", 64, None, 8192, 1000, 0.95),
-    ("list", "euclidean", "f32", 4, None, M, M // 4, 0.95),
+    RescoreCase("cut", "euclidean", "f32", BATCH, 784, 32, K),
+    RescoreCase("list", "euclidean", "f32", BATCH, None, 40, K),
+    RescoreCase("cut", "euclidean", "bf16", BATCH, 784, 32, K),
+    RescoreCase("cut", "euclidean", "f32", 924, 784, 32, K),
+    RescoreCase("cut", "euclidean", "f32", 923, 784, 32, K),
+    RescoreCase("cut", "euclidean", "f32", 256, 784, 32, K),
+    RescoreCase("cut", "euclidean", "f32", 1, 784, 32, K),
+    RescoreCase("cut", "euclidean", "f32", BATCH, 7824, 128, K),
+    RescoreCase("cut", "euclidean", "f32", BATCH, 7824, 128, K, ties=True),
+    RescoreCase("list", "euclidean", "f32", BATCH, None, 128, K),
+    RescoreCase("list", "euclidean", "f32", BATCH, None, 129, K),
+    RescoreCase("list", "euclidean", "f32", BATCH, None, 256, K),
+    RescoreCase("list", "euclidean", "f32", BATCH, None, 512, K),
+    RescoreCase("list", "euclidean", "f32", BATCH, None, 513, K),
+    RescoreCase("cut", "euclidean", "f32", 256, 32768, 512, 100),
+    RescoreCase("cut", "euclidean", "f32", BATCH, 784, 32, K, 0.05),
+    RescoreCase("cut", "cosine", "f32", BATCH, 784, 32, 1),
+    RescoreCase("list", "dot-product", "bf16", BATCH, None, 40, K),
+    RescoreCase("cut", "euclidean", "f32", BATCH, 784, 32, K, d=5),
+    RescoreCase("list", "cosine", "bf16", BATCH, None, 40, K, d=33),
+    RescoreCase("list", "euclidean", "f32", 99, None, 2048, 100),
+    RescoreCase("list", "euclidean", "f32", 100, None, 2048, 100),
+    RescoreCase("list", "euclidean", "f32", 264, None, 2048, 100),
+    RescoreCase("list", "euclidean", "f32", 265, None, 2048, 100),
+    RescoreCase("cut", "euclidean", "bf16", 16, 20000, 4096, 1),
+    RescoreCase("list", "euclidean", "f32", 64, None, 8192, 1000),
+    RescoreCase("list", "euclidean", "f32", 4, None, M, M // 4),
+    RescoreCase("list", "euclidean", "f32", 1, None, M, K),
 )
 
 
@@ -618,98 +664,156 @@ def sorted_topk_agree(ids, d, rids, rd, rtol, atol):
     assert np.array_equal(ids[apart], rids[apart]), "an id differs at a unique distance"
 
 
-def rescore_parity(dev, rec):
-    """Phase 3 for kernel 5 (`ops.rescore`): each entry against its plain
-    version at `RESCORE_CASES`, on a 100,000 x 768 corpus drawn on the card
-    (seed 5): launched once a call, ids tie-aware equal, distances within
-    rtol 1e-5 (and, for the dot product, which cancels, 1e-7 of |x|·|q|),
-    NaN at the same places.  Synthetic keys: distinct positions per query,
-    5% dead, the last query all dead.  Each shape is timed beside its bytes
-    bound (the keys, positions and queries, and the rows of this run's
-    valid candidates, read once; [B, k] written) and the plain version; the
-    first shape of each entry is its record."""
+def rescore_corpus(dev):
+    """Kernel 5's parity corpus: 100,000 x 768 drawn on the card (seed 5),
+    every 97th row zero (cosine's |x|·|q| under epsilon), ids, a table of
+    positions, and a generator for the cases' draws."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((M, D), generator=g, device=dev)
+    x[::97] = 0.0
+    s2i = torch.randperm(M, generator=g, device=dev) * 3 + 7
+    mp = -(-M // 256) * 256
+    p2s = torch.zeros(mp, dtype=torch.int64, device=dev)
+    p2s[:M] = torch.randperm(M, generator=g, device=dev)
+    return dict(g=g, x=x, s2i=s2i, p2s=p2s, mp=mp, extras=torch.zeros(M, device=dev), rows={})
+
+
+def rescore_inputs(corpus, case):
+    """One case's inputs on the card: (metric, kernel, plain, entry name,
+    positional args after the metric and d, the work: the valid candidates,
+    the distinct rows among them, the bytes of keys, positions, slots and
+    masks read).  Synthetic keys: distinct positions per query
+    (with `ties`, one position row for all, runs of 8 sharing a key and a
+    slot), 5% dead, and past one query the last all dead."""
     import torch
 
     from arroy_tpu_torch.metrics import metric_by_name
     from arroy_tpu_torch.ops import rescore as rs
     from arroy_tpu_torch.ops.fused_select import DEAD_KEY_MAX
 
-    g = torch.Generator(device=dev).manual_seed(5)
-    x = torch.randn((M, D), generator=g, device=dev)
-    s2i = torch.randperm(M, generator=g, device=dev) * 3 + 7
-    mp = -(-M // 256) * 256
-    p2s = torch.zeros(mp, dtype=torch.int64, device=dev)
-    p2s[:M] = torch.randperm(M, generator=g, device=dev)
-    rows_of = {"f32": x, "bf16": x.to(torch.bfloat16)}
-    norms_of = {k: r.float().norm(dim=1) for k, r in rows_of.items()}
-    extras = torch.zeros(M, device=dev)
-    for entry, metric, dtype, b, n2, c, k, share in RESCORE_CASES:
-        rows, norms = rows_of[dtype], norms_of[dtype]
-        live = torch.rand(M, generator=g, device=dev) < share
-        qv = x[torch.randint(M, (b,), generator=g, device=dev)] \
-            + 0.3 * torch.randn((b, D), generator=g, device=dev)
-        qn, qe = qv.norm(dim=1), torch.zeros(b, device=dev)
-        common = (rows, norms, extras, s2i, qv, qn, qe)
-        m = metric_by_name(metric)
-        if entry == "cut":
-            keys = torch.randint(DEAD_KEY_MAX + 1, 2**31 - 1, (b, n2), generator=g, device=dev)
-            keys[torch.rand((b, n2), generator=g, device=dev) < 0.05] = DEAD_KEY_MAX
-            idxp = (torch.randint(mp, (b, 1), generator=g, device=dev)
-                    + torch.arange(n2, device=dev)[None, :] * 7919) % mp
-            keys[idxp >= M] = DEAD_KEY_MAX
+    g, x, p2s, mp, dev = corpus["g"], corpus["x"], corpus["p2s"], corpus["mp"], corpus["x"].device
+    key = (case.rows, case.d)
+    if key not in corpus["rows"]:
+        r = x[:, :case.d].contiguous()
+        r = r.to(torch.bfloat16) if case.rows == "bf16" else r
+        corpus["rows"][key] = (r, r.float().norm(dim=1))
+    rows, norms = corpus["rows"][key]
+    b, n2, c, k = case.b, case.n2, case.c, case.k
+    live = torch.rand(M, generator=g, device=dev) < case.live
+    qv = rows[torch.randint(M, (b,), generator=g, device=dev)].float() \
+        + 0.3 * torch.randn((b, case.d), generator=g, device=dev)
+    qn, qe = qv.norm(dim=1), torch.zeros(b, device=dev)
+    common = (rows, norms, corpus["extras"], corpus["s2i"], qv, qn, qe)
+    if case.entry == "cut":
+        keys = torch.randint(DEAD_KEY_MAX + 1, 2**31 - 1, (b, n2), generator=g, device=dev)
+        keys[torch.rand((b, n2), generator=g, device=dev) < 0.05] = DEAD_KEY_MAX
+        off = torch.zeros((b, 1), dtype=torch.int64, device=dev) if case.ties else \
+            torch.randint(mp, (b, 1), generator=g, device=dev)
+        idxp = (off + torch.arange(n2, device=dev)[None, :] * 7919) % mp
+        if case.ties:
+            run = (torch.arange(n2, device=dev) // 8) * 8
+            keys = keys[:, run]
+            p2s = p2s.clone()
+            p2s[idxp[0]] = p2s[idxp[0, run]]
+        keys[idxp >= M] = DEAD_KEY_MAX
+        if b > 1:
             keys[-1] = DEAD_KEY_MAX
-            keys, idxp = keys.to(torch.int32), idxp.to(torch.int32)
-            args = (k, c, keys, idxp, p2s, live)
-            kernel, plain, name = rs.cut_rescore, rs.cut_rescore_reference, "cut_rescore"
-            selk, sel = torch.topk(keys, c, dim=1)
-            cand = p2s[torch.gather(idxp, 1, sel).long()]
-            n_valid = int((live[cand] & (selk > DEAD_KEY_MAX)).sum())
-            in_bytes = b * n2 * 8 + b * c * 9
-        else:  # distinct slots a query (7919 is prime to M)
-            cand = (torch.randint(M, (b, 1), generator=g, device=dev)
-                    + torch.arange(c, device=dev)[None, :] * 7919) % M
-            valid = live[cand] & (torch.rand((b, c), generator=g, device=dev) < 0.95)
-            valid[-1] = False
-            args = (k, cand, valid)
-            kernel, plain, name = rs.rescore_topk, rs.rescore_topk_reference, "rescore_topk"
-            n_valid = int(valid.sum())
-            in_bytes = b * c * 9
+        keys, idxp = keys.to(torch.int32), idxp.to(torch.int32)
+        args = (k, c, keys, idxp, p2s, live)
+        selk, sel = torch.topk(keys, c, dim=1)
+        cand = p2s[torch.gather(idxp, 1, sel).long()]
+        valid = live[cand] & (selk > DEAD_KEY_MAX)
+        return (metric_by_name(case.metric), rs.cut_rescore, rs.cut_rescore_reference,
+                "cut_rescore", args + common, rescore_work(cand, valid, b * n2 * 8 + b * c * 9))
+    # distinct slots a query (7919 is prime to M)
+    cand = (torch.randint(M, (b, 1), generator=g, device=dev)
+            + torch.arange(c, device=dev)[None, :] * 7919) % M
+    valid = live[cand] & (torch.rand((b, c), generator=g, device=dev) < 0.95)
+    if b > 1:
+        valid[-1] = False
+    return (metric_by_name(case.metric), rs.rescore_topk, rs.rescore_topk_reference,
+            "rescore_topk", (k, cand, valid) + common, rescore_work(cand, valid, b * c * 9))
+
+
+def rescore_work(cand, valid, key_bytes):
+    """What kernel 5 must do at one case: its valid candidates, the distinct
+    rows among them (queries share rows: each is read once at least) and
+    the bytes of keys, positions, slots and masks."""
+    import torch
+
+    return dict(valid=int(valid.sum()), distinct=int(torch.unique(cand[valid]).numel()),
+                key_bytes=key_bytes)
+
+
+def rescore_bound(case, es, work):
+    """Kernel 5's bound at one case: the keys, positions and queries, and
+    each distinct row of this run's valid candidates, read once; [B, k]
+    written; the distances' operations at the f32 peak."""
+    nbytes = work["key_bytes"] \
+        + work["distinct"] * (case.d * es + (4 if case.metric == "cosine" else 0)) \
+        + case.b * (case.d + 1) * 4 + case.b * case.k * 20
+    return bound(nbytes, (3 if case.metric == "euclidean" else 2) * work["valid"] * case.d, "f32")
+
+
+def rescore_parity(dev, rec):
+    """Phase 3 for kernel 5 (`ops.rescore`): each entry against its plain
+    version at `RESCORE_CASES` (`rescore_inputs`): launched once a call,
+    ids tie-aware equal, distances within rtol 1e-5 (and, for the dot
+    product, which cancels, 1e-7 of |x|·|q|), NaN at the same places.
+    Each shape names the regime the wrapper launched (`ops.rescore.
+    last_plan`) and is timed beside its bound (`rescore_bound`: each
+    distinct row read once) and the plain version (`device_ms`: the launches queued
+    behind a spin kernel, so no host time counts); the first shape of each
+    entry is its record."""
+    import torch
+
+    from arroy_tpu_torch.ops import rescore as rs
+
+    corpus = rescore_corpus(dev)
+    for case in RESCORE_CASES:
+        m, kernel, plain, name, args, work = rescore_inputs(corpus, case)
         n0 = rs.launches[name]
-        ids, d = kernel(m, D, *args, *common)
+        ids, d = kernel(m, case.d, *args)
         torch.cuda.synchronize()
         assert rs.launches[name] == n0 + 1, f"{name} launched {rs.launches[name] - n0} times"
-        rids, rd = plain(m, D, *args, *common)
+        plan = rs.last_plan[name]
+        rids, rd = plain(m, case.d, *args)
         d, rd = d.cpu().numpy(), rd.cpu().numpy()
         assert np.array_equal(np.isnan(d), np.isnan(rd)), f"{name}: NaN at other places"
-        atol = 0.0
-        if metric == "dot-product":
-            atol = 1e-7 * float(qn.max() * norms.max())
-        sorted_topk_agree(ids.cpu().numpy(), d, rids.cpu().numpy(), rd, rtol=1e-5, atol=atol)
+        atol, sgn = 0.0, 1.0
+        if case.metric == "dot-product":  # q·x descends: negated, the rows ascend
+            atol, sgn = 1e-7 * float(args[-2].max() * args[-6].max()), -1.0
+        sorted_topk_agree(ids.cpu().numpy(), sgn * d, rids.cpu().numpy(), sgn * rd, rtol=1e-5,
+                          atol=atol)
         fin = np.isfinite(rd)
         err = float(np.abs(d[fin] - rd[fin]).max()) if fin.any() else 0.0
         rel = float((np.abs(d[fin] - rd[fin]) / np.maximum(np.abs(rd[fin]), 1e-30)).max()) \
             if fin.any() else 0.0
-        ms = cuda_ms(lambda: kernel(m, D, *args, *common), 10)
-        plain_ms = cuda_ms(lambda: plain(m, D, *args, *common), 3)
-        es = rows.element_size()
-        nbytes = in_bytes + n_valid * (D * es + (4 if metric == "cosine" else 0)) \
-            + b * (D + 1) * 4 + b * k * 20
-        bd = bound(nbytes, (3 if metric == "euclidean" else 2) * n_valid * D, "f32")
-        shape = dict(metric=metric, rows=dtype, B=b, n2=n2, c=c, k=k, live=share,
-                     valid_candidates=n_valid, ms=ms, plain_ms=plain_ms, **bd,
-                     max_abs_err=err, max_rel_err=rel, launches=1)
+        ms = device_ms(lambda: kernel(m, case.d, *args), 10)
+        plain_ms = device_ms(lambda: plain(m, case.d, *args), 3)
+        bd = rescore_bound(case, args[-7].element_size(), work)
+        shape = dict(metric=case.metric, rows=case.rows, B=case.b, n2=case.n2, c=case.c,
+                     k=case.k, d=case.d, live=case.live, ties=case.ties, regime=plan.regime,
+                     splits=plan.splits, capped=plan.capped, valid_candidates=work["valid"],
+                     distinct_rows=work["distinct"], ms=ms, plain_ms=plain_ms,
+                     **bd, max_abs_err=err, max_rel_err=rel, launches=1)
         r = rec[name]
         if "ms" not in r:
             r.update(ms=ms, plain_ms=plain_ms, **bd, library_ms=None,
                      library="none: no single call computes cut + gather + re-score + top-k")
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         r.setdefault("shapes", []).append(shape)
-        say("parity", f"rescore {name} {metric} {dtype} rows B={b} n2={n2} c={c} k={k} live "
-            f"{share}: ids tie-aware equal, max rel err {rel:.3g} (abs {err:.3g}), kernel "
-            f"{ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), plain "
-            f"{plain_ms:.4f} ms, launches 1")
-        del ids, rids, cand, args
-    del x, rows_of, norms_of, p2s, s2i
+        say("parity", f"rescore {name} [{plan.regime}{' capped' if plan.capped else ''}"
+            f"{f' x{plan.splits}' if plan.splits > 1 else ''}] {case.metric} {case.rows} rows "
+            f"B={case.b} n2={case.n2} c={case.c} k={case.k} d={case.d} live {case.live}"
+            f"{' ties' if case.ties else ''}: ids tie-aware equal, max rel err {rel:.3g} (abs "
+            f"{err:.3g}), kernel {ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+            f"{work['distinct']} distinct rows of {work['valid']} valid candidates), "
+            f"plain {plain_ms:.4f} ms, launches 1")
+        del ids, rids, args
+    del corpus
 
 
 def l2_latency_ns(tv, n=1 << 19, steps=1 << 19):
@@ -1564,7 +1668,24 @@ def large_slice(rec):
         routes[f"{prec} scan"]["recall"] = rc = recall_of(ids, ref_ids)
         say("large", f"{prec} scan (bf16 rows): recall@{K} vs f32x1 {rc:.4f}")
         assert rc >= 0.99, f"{prec} scan recall {rc}"
-        del s
+        # the same unfused searcher under the [B, M] budget (sub-batches of
+        # 256): quantized dots over its cached copy, int8 or bf16 rows
+        n0 = rs.launches["rescore_topk"]
+        assert s.device_fn.quant == []
+        (ids, _), n = scans("exact_scan", lambda: serve(s, f"{prec} unfused B={B_MATRIX}", sub))
+        assert n == 0 and rs.launches["rescore_topk"] == n0 + len(sub) + 1, "a sub-batch streamed"
+        quant = s.device_fn.quant
+        want = {"int8": (torch.int8, torch.float32), "bf16": (torch.bfloat16,)}[prec]
+        assert tuple(t.dtype for t in quant) == want, [t.dtype for t in quant]
+        rec_u = routes[f"{prec} unfused B={B_MATRIX}"]
+        rec_u.update(copy_gb=sum(t.numel() * t.element_size() for t in quant) / 1e9,
+                     copy_dtypes=[str(t.dtype) for t in quant],
+                     recall=recall_of(ids, ref_ids))
+        say("large", f"{prec} unfused, B={B_MATRIX} (the matrix; the fused-table cap at 0): "
+            f"corpus copy {rec_u['copy_gb']:.3f} GB as {rec_u['copy_dtypes']}, "
+            f"{rec_u['ms']:.3f} ms a batch, recall@{K} vs f32x1 {rec_u['recall']:.4f}")
+        assert rec_u["recall"] >= 0.99, f"{prec} unfused recall {rec_u['recall']}"
+        del s, quant
     del r
     # the euclidean index stays for phase 9; its device copies go, so that
     # the BQ routes' memory counts only their own

@@ -48,7 +48,7 @@ N_BATCHES = 8
 #: the hand kernels' CUDA function names, as the consumer lines name them
 HAND_KERNELS = {"fused_select_kernel": "kernel 1", "hamming_kernel": "kernel 2",
                 "gather_score_kernel": "kernel 3", "traverse_kernel": "kernel 4",
-                "rescore_kernel": "kernel 5"}
+                "rescore_kernel": "kernel 5"}  # rescore_kernel_{warp,block,split}
 PROBE_SEARCH_K = 4000
 TRAVERSAL_SEARCH_K = (2000, 4000, 8000)
 SLICES = ("exact", "probe", "traversal")

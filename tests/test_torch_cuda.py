@@ -762,7 +762,9 @@ def test_cuda_exact_scan_matches_cpu(tmp_path, monkeypatch, metric, precision):
     """The streaming scan on the card against the same index scanned on the
     CPU: f32 modes tie-aware at rtol 1e-5; the int8 and bf16 modes (the
     unfused route, forced by a zero fused-table cap) scan bf16 rows on
-    cuBLAS and recall >= 0.99 of the CPU's ids."""
+    cuBLAS and recall >= 0.99 of the CPU's ids.  Under the matrix budget
+    again, the unfused route caches int8 rows (int32-accumulating GEMM)
+    or bf16 rows, and still recalls >= 0.99 of the CPU's ids."""
     gr, cr, q = _traversal_pair(tmp_path, metric)
     t_search = _force_scan(monkeypatch, _FUSED_TABLE_BYTES=0)
     gs_, cs_ = (r.searcher(10, engine="exact", precision=precision) for r in (gr, cr))
@@ -775,6 +777,14 @@ def test_cuda_exact_scan_matches_cpu(tmp_path, monkeypatch, metric, precision):
         tie_aware_equal(ids, d, rids, rd, rtol=1e-5, atol=1e-6)
     else:
         assert recall(ids, rids) >= 0.99
+        monkeypatch.setattr(t_search, "_EXACT_DOTS_BYTES", 4 << 30)
+        n1 = t_search.scan_calls["exact_scan"]
+        ids, _ = _result_arrays(gs_.device_fn(*gs_.prepare_queries(q)))
+        assert t_search.scan_calls["exact_scan"] == n1
+        want = {"int8": (torch.int8, torch.float32), "bf16": (torch.bfloat16,)}[precision]
+        assert tuple(t.dtype for t in gs_.device_fn.quant) == want
+        assert all(t.device.type == "cuda" for t in gs_.device_fn.quant)
+        assert recall(ids, _result_arrays(cs_.device_fn(*cs_.prepare_queries(q)))[0]) >= 0.99
 
 
 @pytest.mark.parametrize("metric", [
@@ -1255,13 +1265,16 @@ def test_cuda_prng_matches_cpu():
 # ---------------------------------------------------------------------------
 
 
-def _stage2_inputs(dev, metric, b, cap, d, dtype="f32", live_share=0.95, seed=0):
+def _stage2_inputs(dev, metric, b, cap, d, dtype="f32", live_share=0.95, seed=0, zero_rows=False):
     """Rows [cap, d] (f32 or bf16), norms, ids, a live mask, and queries
-    near rows (so the re-scored distances spread), all on `dev`."""
+    near rows (so the re-scored distances spread), all on `dev`; with
+    `zero_rows`, every 97th row zero (cosine: |x|·|q| under epsilon)."""
     from arroy_tpu_torch.metrics import metric_by_name
 
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((cap, d)).astype(np.float32)
+    if zero_rows:
+        x[::97] = 0.0
     q = x[rng.integers(cap, size=b)] + 0.3 * rng.standard_normal((b, d)).astype(np.float32)
     rows = torch.from_numpy(x)
     if dtype == "bf16":
@@ -1331,6 +1344,8 @@ def _check_stage2(entry, s, k, c, *args, normalize=True):
     atol = 1e-6
     if s["metric"].name == "dot-product":
         atol = max(atol, 1e-7 * float(s["qv"].norm(dim=1).max() * s["norms"].max()))
+        if normalize:  # q·x descends: negated, the row's boundary is its largest value
+            fd, frd = -fd, -frd
     tie_aware_equal(ids.cpu().numpy(), fd, rids.cpu().numpy(), frd, rtol=1e-5, atol=atol)
     return ids, d
 
@@ -1409,6 +1424,90 @@ def test_cuda_searchers_launch_kernel5_once_a_batch(tmp_path, metric, precision,
         assert recall(got[0], want[0]) >= 0.99
     else:
         tie_aware_equal(*got, *want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot-product"])
+@pytest.mark.parametrize("entry,b,n2,c,k,ties,regime", [
+    ("list", 2048, None, 128, 10, False, "warp"),
+    ("list", 2048, None, 129, 10, False, "warp"),
+    ("list", 2048, None, 512, 10, False, "warp"),
+    ("list", 2048, None, 513, 10, False, "block"),
+    ("cut", 924, 784, 32, 10, False, "warp"),
+    ("cut", 923, 784, 32, 10, False, "block"),
+    ("cut", 1, 784, 32, 10, False, "block"),
+    ("list", 265, None, 2048, 100, False, "block"),
+    ("list", 264, None, 2048, 100, False, "block"),
+    ("list", 100, None, 2048, 100, False, "block"),
+    ("list", 99, None, 2048, 100, False, "split"),
+    ("list", 1, None, 30_000, 10, False, "split"),
+    ("list", 4, None, 30_000, 300, False, "split"),
+    ("cut", 2048, 7824, 128, 10, True, "warp"),
+    ("cut", 64, 32768, 512, 200, False, "block"),
+    ("cut", 16, 20000, 4096, 1, True, "split"),
+    ("cut", 8, 20000, 4096, 500, False, "split"),
+])
+def test_cuda_kernel5_regimes_match_plain(metric, entry, b, n2, c, k, ties, regime):
+    """Each of kernel 5's regimes (`ops.rescore._plan`) at and around its
+    boundaries: c = 128, 129 and 512 (the warp sorts of 128, 256 and 512)
+    / 513, B = 924 / 923 and 1 at c = 32 (the warp regime's least batch),
+    B = 265 / 264 (the block regime's register cap), 100 / 99 at c = 2,048,
+    B = 1 and 4 at
+    c = 30,000, the cut's split regime (each CTA selects again, positions
+    as columns), runs of equal keys across the c-th, k past 128 (the
+    ordered finish), cosine over zero rows; against the plain version,
+    normalized and raw."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    dev = require_cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert rs._plan(b, c, n2, 768, k, sms).regime == regime
+    s, args = _regime_inputs(dev, metric, entry, b, n2, c, k, ties)
+    for normalize in (True, False):
+        _check_stage2(entry, s, k, c, *args, normalize=normalize)
+    assert rs.last_plan["cut_rescore" if entry == "cut" else "rescore_topk"].regime == regime
+
+
+def _regime_inputs(dev, metric, entry, b, n2, c, k, ties=False):
+    """`_stage2_inputs` over 100,000 x 768 (live 0.9, zero rows, seed c + k)
+    and the entry's own arguments: the cut's keys, or a list of c distinct
+    slots a query, 95% valid, the last query all dead."""
+    s = _stage2_inputs(dev, metric, b, 100_000, 768, live_share=0.9, seed=c + k,
+                       zero_rows=True)
+    if entry == "cut":
+        return s, (*_cut_inputs(s, b, n2, ties=ties), s["live"])
+    rng = s["rng"]
+    cand = np.stack([rng.choice(100_000, c, replace=False) for _ in range(b)])
+    valid = s["live"].cpu().numpy()[cand] & (rng.random((b, c)) < 0.95)
+    if b > 1:
+        valid[-1] = False  # an all-dead query
+    return s, (torch.from_numpy(cand).to(dev), torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot-product"])
+@pytest.mark.parametrize("entry,b,n2,c,k,forced,splits", [
+    ("list", 132, None, 2048, 100, "split", 2),
+    ("cut", 132, 20000, 2048, 10, "split", 2),
+    ("cut", 1, 784, 32, 10, "warp", 1),
+    ("list", 2048, None, 513, 10, "block", 1),
+])
+def test_cuda_kernel5_forced_plans_match_plain(monkeypatch, metric, entry, b, n2, c, k, forced,
+                                               splits):
+    """Kernel 5 in a plan `ops.rescore._plan` does not pick for the shape
+    (`ops.rescore._plans`), against the plain version: the split regime
+    with S = 2 (no B of this card's plans gives it: a B for which two CTAs
+    fill the card is past SPLIT_MAX_SHARE), a warp for one query, and the
+    block regime uncapped at 2048 queries."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    dev = require_cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = rs._plans(b, c, n2, 768, k, sms)[forced]
+    assert plan != rs._plan(b, c, n2, 768, k, sms) and plan.splits == splits
+    monkeypatch.setattr(rs, "_plan", lambda *_a, **_kw: plan)
+    s, args = _regime_inputs(dev, metric, entry, b, n2, c, k)
+    for normalize in (True, False):
+        _check_stage2(entry, s, k, c, *args, normalize=normalize)
+    assert rs.last_plan["cut_rescore" if entry == "cut" else "rescore_topk"] == plan
 
 
 def test_cuda_kernel5_rejects_bad_inputs():
