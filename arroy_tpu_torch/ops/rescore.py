@@ -24,6 +24,12 @@ versions (a [B, c, d] f32 gather, elementwise distance, `torch.topk`).
 Only the metrics whose distance the kernel computes are taken:
 euclidean, cosine and dot-product.  Rows may be f32 or bf16 (promoted
 exactly to f32).
+
+The forest engines' exact re-scores (the probe's stage 3, the
+traversal's `search._rescore_batch`; the JAX package's XLA code at
+`arroy_tpu/probe.py:575-640` and `arroy_tpu/search.py:525-575`) dedup
+their candidates as plain ops, then take `forest_rescore` where
+`forest_kernel` says so: `rescore_topk` once a batch.
 """
 
 from __future__ import annotations
@@ -74,6 +80,8 @@ REGIMES = {"warp": 0, "block": 1, "split": 2}
 #: registers are held to 4 CTAs an SM (more CTAs resident, fewer registers)
 BLOCK_CAP_QUERIES = 2
 _ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: candidates (B · c) one launch takes at most: the kernel indexes them in int32
+MAX_CANDIDATES = 2**31 - 1
 
 
 class Plan(NamedTuple):
@@ -244,7 +252,7 @@ def _common(what, metric, k, c, n2, rows, norms, slot_to_id, qv, qn, tensors):
         )
     if not 1 <= k <= c:
         raise ValueError(f"{what}: k = {k} must be in [1, {c}] (the candidates a query has)")
-    if cap >= 2**31 or b * c >= 2**31:
+    if cap > MAX_CANDIDATES or b * c > MAX_CANDIDATES:
         raise ValueError(f"{what}: {cap} rows and {b} x {c} candidates must stay under 2^31")
     tensors = (rows, norms, slot_to_id, qv, qn) + tensors
     if any(t.device != rows.device or not t.is_contiguous() for t in tensors):
@@ -345,3 +353,37 @@ def rescore_topk(
     launches["rescore_topk"] += 1
     last_plan["rescore_topk"] = plan
     return ids, out
+
+
+# ---------------------------------------------------------------------------
+# the forest engines' re-scores
+# ---------------------------------------------------------------------------
+
+
+def forest_kernel(metric, device) -> bool:
+    """Whether a forest engine's exact re-score (the probe's stage 3,
+    `search._rescore_batch`) runs on the kernel: tensors on a CUDA device
+    and a metric it computes.  Manhattan, the BQ metrics and registered
+    metrics keep their caller's plain chain on every device, and so does
+    every metric on the CPU (the callers' chains gather in chunks, where
+    `rescore_topk_reference` gathers [B, c, d] whole)."""
+    return torch.device(device).type == "cuda" and metric.name in METRICS
+
+
+def forest_rescore(
+    metric, dims, k, cand, valid, rows, norms, extras, slot_to_id, qv, qn, qe, normalize=True
+):
+    """`rescore_topk` over a forest engine's deduplicated [B, c] candidate
+    list: one launch a batch, or one a chunk of queries where B · c passes
+    `MAX_CANDIDATES` (a filter pool of 2^20 slots at B = 2048)."""
+    qv, qn = qv.contiguous(), qn.contiguous()
+    step = max(1, MAX_CANDIDATES // max(cand.shape[1], 1))
+    if cand.shape[0] <= step:
+        return rescore_topk(metric, dims, k, cand, valid, rows, norms, extras, slot_to_id,
+                            qv, qn, qe, normalize)
+    parts = [
+        rescore_topk(metric, dims, k, cand[s:s + step], valid[s:s + step], rows, norms, extras,
+                     slot_to_id, qv[s:s + step], qn[s:s + step], qe[s:s + step], normalize)
+        for s in range(0, cand.shape[0], step)
+    ]
+    return torch.cat([i for i, _ in parts]), torch.cat([d for _, d in parts])

@@ -15,7 +15,8 @@ deviation from the reference's best-first traversal, PARITY.md):
 3. The selected blocks are scored by the gather-score kernel
    (`ops/gather_score`), which streams each block once and never
    materializes the gathered rows; a top-k2 cut, a slot-dedup and an
-   exact f32 re-score produce the final top-k.
+   exact f32 re-score produce the final top-k (kernel 5's `rescore_topk`
+   on the card for euclidean, cosine and dot-product).
 
 The block tables are packed on the host with numpy, bit-identical to the
 JAX package's `build_tables_np` (bf16 rows are rounded by PyTorch, which
@@ -44,6 +45,7 @@ from .ops.binary import (
     unpack_bits_np,
 )
 from .ops.gather_score import gather_score
+from .ops.rescore import forest_kernel, forest_rescore
 from .search import _f32_matmul
 
 _INF = float("inf")
@@ -544,14 +546,40 @@ def _probe_core(
             sel_s, cand = allv, alls
 
     # 3. slot-dedup FIRST (cross-tree duplicates are 20-30% at T=4..8),
-    # then the exact f32 re-score of each surviving slot, then top-k;
-    # past the gather budget the re-score runs in chunks with per-chunk
-    # top-k and one final merge
+    # then the exact f32 re-score of each surviving slot, then top-k
     ss, order = torch.sort(cand, dim=1, stable=True)
     sv = torch.gather(sel_s, 1, order)
     dup = torch.zeros_like(ss, dtype=torch.bool)
     dup[:, 1:] = ss[:, 1:] == ss[:, :-1]
     live = (ss >= 0) & (sv > -_INF) & ~dup
+    return _rescore_slots(metric, dims, k, ss, live, rows, norms, extras, slot_to_id,
+                          qv, qn, qe, normalize)
+
+
+def _rescore_slots(metric, dims, k, ss, live, rows, norms, extras, slot_to_id, qv, qn, qe,
+                   normalize=True):
+    """Stage 3 after the dedup: the [B, k2] slot-sorted candidates ``ss``
+    (-1 pad) where ``live`` → (ids, dists) as `_probe_core` returns them.
+    Kernel 5 once a batch where `forest_kernel` says so; else the plain
+    chain, `_rescore_slots_plain`."""
+    if not forest_kernel(metric, rows.device):
+        return _rescore_slots_plain(metric, dims, k, ss, live, rows, norms, extras, slot_to_id,
+                                    qv, qn, qe, normalize)
+    cand = torch.clamp(ss, min=0).to(torch.int64)  # the table's slots are int32
+    ids, out_d = forest_rescore(metric, dims, k, cand, live, rows, norms, extras, slot_to_id,
+                                qv, qn, qe, normalize)
+    if normalize:
+        ids = torch.where(torch.isnan(out_d), 0, ids)
+    return ids, out_d
+
+
+def _rescore_slots_plain(metric, dims, k, ss, live, rows, norms, extras, slot_to_id, qv, qn, qe,
+                         normalize=True):
+    """The plain version of `_rescore_slots` (every metric, every device):
+    a [B, k2, d] f32 gather with elementwise distances and `torch.topk`,
+    past the gather budget in chunks with per-chunk top-k and one final
+    merge."""
+    b = qv.shape[0]
 
     def exact_chunk(slots_c, live_c):
         cs = torch.clamp(slots_c, min=0)

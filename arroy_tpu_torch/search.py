@@ -78,7 +78,7 @@ from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
 from .ops.bq_kernels import bq_hamming_matrix
 from .ops.binary import WORD_BITS
 from .ops.fused_select import DEFAULT_BM, DEFAULT_GP, fused_block_select
-from .ops.rescore import cut_rescore, rescore_topk
+from .ops.rescore import cut_rescore, forest_kernel, forest_rescore, rescore_topk
 from .ops.rescore import finish_topk as _finish
 from .ops.traverse import POP_BLOCK, traverse
 from .ops.traverse import traverse_reference as _traverse_batch  # noqa: F401 (the plain loop's name)
@@ -631,8 +631,9 @@ def _rescore_batch(
     """Exact re-score of [B, cap] candidate slots (-1 pad) → top-k
     (`_rescore_impl`): valid candidates sorted by ascending id and
     deduplicated (the reference's sort_unstable + dedup,
-    src/reader.rs:378-379), distances in chunks of `_RESCORE_CHUNK`."""
-    b, cap = cand.shape
+    src/reader.rs:378-379), then kernel 5 once a batch where
+    `forest_kernel` says so, else distances in chunks of `_RESCORE_CHUNK`
+    (the plain chain, on every device)."""
     valid0 = cand >= 0
     ids = slot_to_id[torch.clamp(cand, min=0)]
     # valid-first is the primary key, so that a genuine id of u32::MAX
@@ -645,6 +646,9 @@ def _rescore_batch(
     dup = torch.zeros_like(valid_s)
     dup[:, 1:] = (ids_s[:, 1:] == ids_s[:, :-1]) & valid_s[:, :-1]
     invalid = ~valid_s | dup
+    if forest_kernel(metric, rows.device):
+        return forest_rescore(metric, dims, k, slots_s, ~invalid, rows, norms, extras,
+                              slot_to_id, qv, qn, qe, normalize)
     d = torch.cat(
         [
             metric.built_distance(

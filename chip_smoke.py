@@ -31,8 +31,12 @@ exits non-zero:
    f32x1 list, 1M's cut, each regime's boundaries in c and B, c up to
    8,192 and the whole corpus, k = 1 to 25,000, bf16 rows, rows of 5 and
    33, a filtered live mask, ties at the c-th key, cosine over zero rows,
-   an all-dead query): ids tie-aware equal, the largest relative error,
-   kernel ms (device time) beside its bytes bound and the plain version's ms;
+   an all-dead query; then `FOREST_CASES`, the forest engines' sorted
+   lists with repeats marked dead: the probe's stage 3 at B = 256, c =
+   512 / 1,000 / 4,000, f32 and bf16 rows, the traversal's at B = 1 and
+   16, c = cap at search_k 2000 and 8000): ids tie-aware equal, the
+   largest relative error, kernel ms (device time) beside its bytes bound
+   and the plain version's ms;
 4. slice — the bench configuration (100,000 x 768 clustered corpus,
    euclidean, 10 trees): add, build, commit to disk, reopen, validate,
    then exact search at f32x1 / bf16 / int8 on 4 batches of 2048
@@ -48,7 +52,10 @@ exits non-zero:
    f32 block tables; 64 queries held against the same searcher on the
    CPU; the default (bf16) probe at search_k 4000 and 8000 with the JAX
    package's re-score cut (512) and the port's (search_k over
-   `probe.CUT_SHARE` past the floor), qps and recall; then kernel 3 timed on a real selection of
+   `probe.CUT_SHARE` past the floor), qps and recall; kernel 5's
+   `rescore_topk` once a batch for every table type (the probe's stage
+   3), tie-aware equal on batch 0 to the plain stage-3 chain fed the same
+   stage-2 candidates; then kernel 3 timed on a real selection of
    blocks, with the share of distinct blocks in the whole selection and
    in the probe's chunks of it, and its rates on total, distinct and read
    bytes;
@@ -62,7 +69,12 @@ exits non-zero:
    queries held against the same searcher on the CPU (its own margins,
    and the card's: leaf logs equal, 0 ids differing), `nns()` against the
    searcher, and one filtered batch (10% of the ids, equal to the plain
-   loop's); then the multi-pop sweep: P = 1, 4, 16 pops a step at
+   loop's); the small batches: `nns().by_vector` (B = 1) over 64 queries
+   and the forest searcher at B = 16 at search_k 2000, 4000 and 8000,
+   unfiltered and filtered at 10% of the ids, re-scoring per candidate
+   (kernel 5's `rescore_topk` once a batch), in turns with the plain chain
+   (ms a query, ms a batch; answers tie-aware equal; recall@10 against
+   f32x1); then the multi-pop sweep: P = 1, 4, 16 pops a step at
    search_k 2000, 4000 and 8000, with qps, loop steps and pops a batch,
    kernel 4's launches a batch, device events, device busy and kernel 4's
    device time a batch (`torch.profiler`), the idle share and recall@10;
@@ -137,6 +149,8 @@ exits non-zero:
    recall@10 0.95 against exact, with qps; kernel 3 held against its
    plain version on shard 0's tables; kernel 4 counted (once a shard a
    traversal call) and held bit-equal to its plain version on shard 0;
+   kernel 5's `rescore_topk` counted (once a shard a call of either) and
+   both answering on batch 0 as their plain chains;
    (c) `ArroyBuilder.mesh` over the
    same rows on 4 shards and on 1: equal node for node, valid, traversal
    recall@10 at search_k 8000 within 0.02 of a resident build, the three
@@ -187,6 +201,9 @@ M_PROBE, B_PROBE, N_PROBE_BATCHES = 262_144, 256, 8
 TARGET_RECALL, SEARCH_K0, SK_DOUBLINGS = 0.95, 2000, 3
 #: phase 7's multi-pop sweep: pops a step, and the search_k of each
 MULTIPOP, MULTIPOP_SK = (1, 4, 16), (2000, 4000, 8000)
+#: phase 7's small batches: `nns()` one query at a time over SMALL_QUERIES
+#: queries, and the forest searcher at B = SMALL_B, at each of MULTIPOP_SK
+SMALL_QUERIES, SMALL_B = 64, 16
 #: phase 8: a corpus past the [B, M] budget at B = 2048, served in batches
 #: of 2048 (streamed) and held against sub-batches of 256 (the matrix)
 M_LARGE, N_LARGE_BATCHES, B_MATRIX = 1_000_000, 2, 256
@@ -589,7 +606,9 @@ class RescoreCase(NamedTuple):
     """One of kernel 5's parity shapes: the entry ("cut" or "list"), metric,
     row type, B, the key row's width n2 (cut) or None, c, k, the live share,
     the row width and, for the cut, whether each run of 8 positions shares
-    one key and one slot (so the c-th key is tied)."""
+    one key and one slot (so the c-th key is tied); for a list, the share
+    of columns that repeat another's slot (`dup`: a forest engine's list,
+    sorted, each repeat marked dead as its dedup marks it)."""
 
     entry: str
     metric: str
@@ -601,6 +620,7 @@ class RescoreCase(NamedTuple):
     live: float = 0.95
     d: int = D
     ties: bool = False
+    dup: float = 0.0
 
 
 #: kernel 5's parity shapes.  The exact slice's main shapes first (the
@@ -615,7 +635,7 @@ class RescoreCase(NamedTuple):
 #: loads), and past `SMEM_CANDIDATES` and into the split regime: c = 2,048
 #: at B = 99 (split), 100, 264 and 265 (block, its registers capped past
 #: 264), c = 4,096, 8,192 and f32x1's whole corpus at count = cap / 4, and
-#: B = 1.
+#: B = 1.  Then the forest engines' lists (`FOREST_CASES`).
 RESCORE_CASES = (
     RescoreCase("cut", "euclidean", "f32", BATCH, 784, 32, K),
     RescoreCase("list", "euclidean", "f32", BATCH, None, 40, K),
@@ -645,6 +665,23 @@ RESCORE_CASES = (
     RescoreCase("list", "euclidean", "f32", 64, None, 8192, 1000),
     RescoreCase("list", "euclidean", "f32", 4, None, M, M // 4),
     RescoreCase("list", "euclidean", "f32", 1, None, M, K),
+)
+
+#: the traversal's candidate cap at phase 7's index: next_pow2(search_k) +
+#: the largest leaf (768 items: leaves split past d)
+MAX_LEAF = 768
+#: kernel 5's forest shapes (k = 10, d = 768): the probe's stage 3 at B = 256
+#: and c = k2 = 512, 1,000 and 4,000 (`probe.rescore_cut` up to search_k
+#: 4,096, at 8,000 and at 32,000), f32 and bf16 rows, 25% of the columns
+#: repeats of another's slot, marked dead; the traversal's re-score at B = 1
+#: (`nns()`) and 16 with c = cap at search_k 2000 and 8000, 5% repeats
+FOREST_CASES = tuple(
+    RescoreCase("list", "euclidean", rows, B_PROBE, None, c, K, live=1.0, dup=0.25)
+    for c in (512, 1000, 4000) for rows in ("f32", "bf16")
+) + tuple(
+    RescoreCase("list", "euclidean", "f32", b, None, 2048 + MAX_LEAF if sk == 2000 else
+                8192 + MAX_LEAF, K, live=1.0, dup=0.05)
+    for b in (1, 16) for sk in (2000, 8000)
 )
 
 
@@ -731,6 +768,12 @@ def rescore_inputs(corpus, case):
     cand = (torch.randint(M, (b, 1), generator=g, device=dev)
             + torch.arange(c, device=dev)[None, :] * 7919) % M
     valid = live[cand] & (torch.rand((b, c), generator=g, device=dev) < 0.95)
+    if case.dup:  # a forest engine's list: repeats of other columns, sorted, marked dead
+        rep = torch.rand((b, c), generator=g, device=dev) < case.dup
+        src = torch.randint(c, (b, c), generator=g, device=dev)
+        cand = torch.where(rep, torch.gather(cand, 1, src), cand).sort(dim=1).values
+        valid = live[cand] & (torch.rand((b, c), generator=g, device=dev) < 0.97)
+        valid[:, 1:] &= cand[:, 1:] != cand[:, :-1]
     if b > 1:
         valid[-1] = False
     return (metric_by_name(case.metric), rs.rescore_topk, rs.rescore_topk_reference,
@@ -772,7 +815,7 @@ def rescore_parity(dev, rec):
     from arroy_tpu_torch.ops import rescore as rs
 
     corpus = rescore_corpus(dev)
-    for case in RESCORE_CASES:
+    for case in RESCORE_CASES + FOREST_CASES:
         m, kernel, plain, name, args, work = rescore_inputs(corpus, case)
         n0 = rs.launches[name]
         ids, d = kernel(m, case.d, *args)
@@ -795,7 +838,8 @@ def rescore_parity(dev, rec):
         plain_ms = device_ms(lambda: plain(m, case.d, *args), 3)
         bd = rescore_bound(case, args[-7].element_size(), work)
         shape = dict(metric=case.metric, rows=case.rows, B=case.b, n2=case.n2, c=case.c,
-                     k=case.k, d=case.d, live=case.live, ties=case.ties, regime=plan.regime,
+                     k=case.k, d=case.d, live=case.live, ties=case.ties, dup=case.dup,
+                     regime=plan.regime,
                      splits=plan.splits, capped=plan.capped, valid_candidates=work["valid"],
                      distinct_rows=work["distinct"], ms=ms, plain_ms=plain_ms,
                      **bd, max_abs_err=err, max_rel_err=rel, launches=1)
@@ -808,7 +852,8 @@ def rescore_parity(dev, rec):
         say("parity", f"rescore {name} [{plan.regime}{' capped' if plan.capped else ''}"
             f"{f' x{plan.splits}' if plan.splits > 1 else ''}] {case.metric} {case.rows} rows "
             f"B={case.b} n2={case.n2} c={case.c} k={case.k} d={case.d} live {case.live}"
-            f"{' ties' if case.ties else ''}: ids tie-aware equal, max rel err {rel:.3g} (abs "
+            f"{' ties' if case.ties else ''}{f' dup {case.dup}' if case.dup else ''}: ids "
+            f"tie-aware equal, max rel err {rel:.3g} (abs "
             f"{err:.3g}), kernel {ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
             f"{work['distinct']} distinct rows of {work['valid']} valid candidates), "
             f"plain {plain_ms:.4f} ms, launches 1")
@@ -1225,8 +1270,110 @@ def traversal_slice(path, r, queries, ref_ids):
             qps=B_PROBE / times["unfiltered"] * 1e3, filtered_ms=times["filtered"],
             filtered_qps=B_PROBE / times["filtered"] * 1e3,
             filtered_pops_max=int(fs_.device_fn.last_pops.max()))))
+    small_batches(r, queries, ref_ids)
     multipop_sweep(path, r, batches, ref_ids, policy)
     say("time", f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
+@contextlib.contextmanager
+def plain_forest_rescore():
+    """Inside the block the forest engines' exact re-scores (the probe's
+    stage 3, `search._rescore_batch`) take their plain chains on the card,
+    as every other metric does (`forest_kernel` answers False): the plain
+    side of a turn."""
+    from arroy_tpu_torch import probe, search
+
+    saved = probe.forest_kernel, search.forest_kernel
+    probe.forest_kernel = search.forest_kernel = lambda *_a: False
+    try:
+        yield
+    finally:
+        probe.forest_kernel, search.forest_kernel = saved
+
+
+def result_arrays(res):
+    """`nns()`'s lists of (id, distance) → ids [n, K], distances (NaN pad)."""
+    ids = np.zeros((len(res), K), np.int64)
+    d = np.full((len(res), K), np.nan, np.float32)
+    for i, row in enumerate(res):
+        ids[i, :len(row)] = [j for j, _ in row]
+        d[i, :len(row)] = [v for _, v in row]
+    return ids, d
+
+
+def small_batches(r, queries, ref_ids):
+    """Phase 7's small batches on phase 4's index: `nns().by_vector` (B = 1)
+    over SMALL_QUERIES queries and `searcher(engine="forest")` at B =
+    SMALL_B over the same queries, at each search_k of MULTIPOP_SK,
+    unfiltered and filtered at 10% of the ids (at least twice search_k),
+    in turns plain, kernel, kernel, plain (`plain_forest_rescore`).  Both
+    re-score per candidate (`rescore_mode` "exact"; the searcher is asked
+    for it where its B · cap passes the corpus), so kernel 5's
+    `rescore_topk` launches once a batch in the kernel turns and never in
+    the plain ones; the two turns' answers are tie-aware equal (rtol 1e-5),
+    `nns()` answers as the batches do, and recall@10 is read against f32x1
+    (over the filter where filtered).  Times on the host clock, ending in a
+    read of the answers: ms a query of `nns()` (what a one-query user
+    waits) and ms a batch of SMALL_B."""
+    import torch
+
+    from arroy_tpu_torch.ops import rescore as rs
+
+    q = queries[:SMALL_QUERIES]
+    for sk in MULTIPOP_SK:
+        n_f = min(max(r.n_items() // 10, 2 * sk), r.n_items())
+        cand = np.random.default_rng(5).choice(r.n_items(), n_f, replace=False)
+        for filt in (None, cand):
+            if filt is None:
+                ref = ref_ids[:SMALL_QUERIES]
+            else:
+                ex = r.searcher(K, engine="exact", precision="f32x1", candidates=filt)
+                ref = ex.device_fn(*ex.prepare_queries(q))[0][:, :K].cpu().numpy()
+            qb = r.nns(K).search_k(sk)
+            if filt is not None:
+                qb = qb.candidates(filt)
+            rescore = "auto"
+            s = r.searcher(K, search_k=sk, engine="forest", candidates=filt)
+            if s.device_fn.rescore_mode(SMALL_B) != "exact":
+                rescore = "exact"
+                s = r.searcher(K, search_k=sk, engine="forest", candidates=filt, rescore="exact")
+            fn = s.device_fn
+            assert s.route == "traversal" and fn.rescore_mode(SMALL_B) == "exact", s.route
+            dqs = [s.prepare_queries(q[i:i + SMALL_B]) for i in range(0, len(q), SMALL_B)]
+            turns, answers = [], {}
+            for mode in ("plain", "kernel", "kernel", "plain"):
+                with plain_forest_rescore() if mode == "plain" else contextlib.nullcontext():
+                    qb.by_vector(q[0])
+                    fn(*dqs[0])  # warm-up
+                    torch.cuda.synchronize()
+                    n0 = rs.launches["rescore_topk"]
+                    t0 = time.perf_counter()
+                    one = [qb.by_vector(v) for v in q]
+                    t1 = time.perf_counter()
+                    n1 = rs.launches["rescore_topk"]
+                    outs = [fn(*dq) for dq in dqs]
+                    got = [(i[:, :K].cpu().numpy(), d[:, :K].cpu().numpy()) for i, d in outs]
+                    t2 = time.perf_counter()
+                    n2 = rs.launches["rescore_topk"]
+                on = mode == "kernel"
+                assert (n1 - n0, n2 - n1) == ((len(q), len(dqs)) if on else (0, 0)), \
+                    (mode, n1 - n0, n2 - n1)
+                turns.append(dict(mode=mode, nns_ms_a_query=(t1 - t0) * 1e3 / len(q),
+                                  batch_ms=(t2 - t1) * 1e3 / len(dqs)))
+                answers[mode] = (result_arrays(one),
+                                 tuple(np.concatenate(a) for a in zip(*got)))
+            (kn, kb), (pn, pb) = answers["kernel"], answers["plain"]
+            tie_aware_equal(*kn, *pn, rtol=1e-5)
+            tie_aware_equal(*kb, *pb, rtol=1e-5)
+            tie_aware_equal(*kn, *kb, rtol=1e-5)
+            if filt is not None:
+                assert set(np.unique(kn[0]).tolist()) <= set(filt.tolist()), "outside the filter"
+            say("traversal", "small batches " + json.dumps(dict(
+                search_k=sk, filter_ids=0 if filt is None else n_f, B=SMALL_B,
+                queries=len(q), rescore=rescore, cap=fn.cap, max_leaf=fn.idx.max_leaf,
+                kernel5_launches_a_batch=1, recall_nns=recall_of(kn[0], ref),
+                recall_batch=recall_of(kb[0], ref),
+                ids_differing_from_plain=ids_differing(kn[0], pn[0]), turns=turns)))
 
 
 def traversal_events(path, qfile):
@@ -1329,6 +1476,7 @@ def probe_slice(tmp):
     import torch
 
     from arroy_tpu_torch import Database, Reader, Writer
+    from arroy_tpu_torch.ops import rescore as rs
 
     rng = np.random.default_rng(42)
     x = make_corpus(rng, M_PROBE + B_PROBE * N_PROBE_BATCHES, D)
@@ -1370,9 +1518,15 @@ def probe_slice(tmp):
                 say("probe", f"{dtype} -> {kind} tables: T={fn.tables.n_trees} P={fn.tables.block} "
                     f"nb_max={fn.tables.nb_max} fill={fn.tables.fill:.3f}, "
                     f"{fn.tables.nbytes() / 2**30:.3f} GiB on the card, built in {bind_s:.2f} s")
+            n0 = rs.launches["rescore_topk"]
             ids, dists = run_batches(s, batches, f"probe {kind} sk={sk} L={fn.L} k2={fn.k2}")
+            per_batch = (rs.launches["rescore_topk"] - n0) / (len(batches) + 1)  # and the warm-up
+            assert per_batch == 1, f"kernel 5 launched {per_batch} times a batch"
             rc = recall_of(ids, ref_ids)
-            say("probe", f"{kind} sk={sk}: recall@{K} vs f32x1 {rc:.4f}")
+            n_diff = probe_stage3_check(s, batches[0])
+            say("probe", f"{kind} sk={sk}: recall@{K} vs f32x1 {rc:.4f}; kernel 5 (rescore_topk) "
+                f"launches a batch 1; stage 3 on batch 0 tie-aware equal to its plain chain fed "
+                f"the same stage-2 candidates ({n_diff} ids differ)")
             if rc >= TARGET_RECALL or kind == "f32":
                 break
             if step < SK_DOUBLINGS:
@@ -1389,6 +1543,32 @@ def probe_slice(tmp):
             f"at most 1 per row; {time.perf_counter() - t0:.2f} s)")
     probe_cuts(r, batches, ref_ids)
     return served, batches
+
+
+def probe_stage3_check(s, batch):
+    """The probe's stage 3 on the card (kernel 5) against its plain chain
+    (`probe._rescore_slots_plain`) fed the same stage-2 candidates: ids
+    tie-aware equal, distances rtol 1e-5 (f32 sums in another order).  The
+    comparison's launch is not counted.  Returns the ids that differ."""
+    from arroy_tpu_torch import probe
+    from arroy_tpu_torch.ops import rescore as rs
+
+    seen, real = [], probe._rescore_slots
+
+    def record(*a):
+        seen.append(a)
+        return real(*a)
+
+    probe._rescore_slots = record
+    try:
+        with uncounted(rs.launches):
+            ids, d = s.device_fn(*s.prepare_queries(batch))
+    finally:
+        probe._rescore_slots = real
+    pids, pd = probe._rescore_slots_plain(*seen[0])
+    ids, d, pids, pd = (a[:, :K].cpu().numpy() for a in (ids, d, pids, pd))
+    tie_aware_equal(ids, d, pids, pd, rtol=1e-5)
+    return ids_differing(ids, pids)
 
 
 def probe_cuts(r, batches, ref_ids):
@@ -2460,6 +2640,19 @@ def multidevice_slice(rec):
     got_b = read("b")
     launched = got_b["gather_score_bf16"]
     assert launched > 0, "kernel 3 never launched on the sharded probe"
+    # kernel 5 (`rescore_topk`) once a shard for every traversal and probe
+    # call, and both answer as their plain chains on batch 0
+    assert got_b["rescore_topk"] == N_SHARDS * (calls["traversal"] + calls["probe"]), (got_b, calls)
+    with uncounted(*counters):
+        for name, fn in (("traversal", fidx.search), ("probe", fidx.probe_search)):
+            sk = out[f"sharded_{name}"]["search_k"]
+            got = fn(qb[0], K, search_k=sk)
+            with plain_forest_rescore():
+                want = fn(qb[0], K, search_k=sk)
+            tie_aware_equal(*got, *want, rtol=1e-5)
+            say("multidevice", f"sharded {name} sk={sk}: kernel 5 {got_b['rescore_topk']} launches "
+                f"({N_SHARDS} a call); batch 0 tie-aware equal to the plain chain "
+                f"({ids_differing(got[0], want[0])} ids differ)")
     # kernel 4 once a shard for every traversal call, and bit-equal to its
     # plain version on shard 0 at the budgets that reached the target
     assert got_b["traverse"] == N_SHARDS * calls["traversal"], (got_b, calls)
@@ -2822,13 +3015,16 @@ def main() -> int:
     del x, queries, batches
 
     # 6. the probe slice (main path: counts from here)
-    for k in gs.launches:
-        gs.launches[k] = 0
+    for c in (gs.launches, rs.launches):
+        for k in c:
+            c[k] = 0
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         served, pbatches = probe_slice(tmp)
         probe_launches = dict(gs.launches)
-        say("launches", f"probe path: {json.dumps(probe_launches)}")
+        say("launches", f"probe path: {json.dumps({**probe_launches, **rs.launches})}")
+        assert rs.launches["rescore_topk"] > 0, "kernel 5 never launched on the probe path"
+        rec["rescore_topk"]["phase6_launches"] = rs.launches["rescore_topk"]
         say("probe", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         time_gather(gs, served, pbatches, rec)
         del served

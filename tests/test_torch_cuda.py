@@ -1532,3 +1532,221 @@ def test_cuda_kernel5_rejects_bad_inputs():
     with pytest.raises(TypeError, match="f32 or bf16"):
         rs.rescore_topk(s["metric"], 16, 10, cand, valid, s["rows"].half(), *common[1:])
     assert rs.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# kernel 5 in the forest engines: the probe's stage 3, the traversal's
+# re-score (nns(), small batches, the filter pool), the sharded forest
+# ---------------------------------------------------------------------------
+
+
+def _forest_list(s, b, c, dup_share, seed=0):
+    """A forest engine's deduplicated candidate list on the card: [B, c]
+    slots, sorted in each query, a share of them duplicates of another
+    column and marked dead as the dedup marks them, a few more dead (slots
+    the engines drop), the last query all dead."""
+    rng = np.random.default_rng(seed)
+    cap = s["rows"].shape[0]
+    cand = np.stack([rng.choice(cap, c, replace=False) for _ in range(b)])
+    dup = rng.random((b, c)) < dup_share
+    cand[dup] = cand[np.nonzero(dup)[0], rng.integers(c, size=int(dup.sum()))]
+    cand.sort(axis=1)
+    valid = np.ones((b, c), bool)
+    valid[:, 1:] = cand[:, 1:] != cand[:, :-1]
+    valid &= rng.random((b, c)) < 0.97
+    if b > 1:
+        valid[-1] = False
+    dev = s["qv"].device
+    return torch.from_numpy(cand).to(dev), torch.from_numpy(valid).to(dev)
+
+
+#: the forest engines' shapes (d = 768, k = 10): the probe's stage 3 at
+#: B = 256 and c = k2 = 512, 1,000 and 4,000 (search_k up to 4,096, 8,000
+#: and 32,000), f32 and bf16 rows, 25% duplicates; the traversal's at
+#: B = 1 and 16 with c = cap = next_pow2(search_k) + max_leaf (768) at
+#: search_k 2000 and 8000
+FOREST_SHAPES = [
+    ("euclidean", "f32", 256, 512, 0.25), ("euclidean", "bf16", 256, 512, 0.25),
+    ("cosine", "f32", 256, 1000, 0.25), ("euclidean", "bf16", 256, 1000, 0.25),
+    ("dot-product", "f32", 256, 4000, 0.25), ("euclidean", "bf16", 256, 4000, 0.25),
+    ("euclidean", "f32", 1, 2816, 0.05), ("euclidean", "f32", 1, 8960, 0.05),
+    ("euclidean", "f32", 16, 2816, 0.05), ("cosine", "f32", 16, 8960, 0.05),
+]
+
+
+@pytest.mark.parametrize("metric,dtype,b,c,dup", FOREST_SHAPES)
+def test_cuda_kernel5_forest_shapes_every_plan(monkeypatch, metric, dtype, b, c, dup):
+    """Each forest shape in every plan that can run it (`ops.rescore._plans`),
+    against the plain version, normalized and raw."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    dev = require_cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = _stage2_inputs(dev, metric, b, 100_000, 768, dtype, live_share=1.0, seed=c)
+    cand, valid = _forest_list(s, b, c, dup, seed=c)
+    plans = rs._plans(b, c, None, 768, 10, sms)
+    assert rs._plan(b, c, None, 768, 10, sms) in plans.values()
+    for name, plan in plans.items():
+        monkeypatch.setattr(rs, "_plan", lambda *_a, _p=plan, **_kw: _p)
+        for normalize in (True, False):
+            _check_stage2("list", s, 10, c, cand, valid, normalize=normalize)
+        assert rs.last_plan["rescore_topk"] == plan, name
+
+
+@pytest.fixture
+def plain_forest_rescore(monkeypatch):
+    """A function that runs its argument with the forest engines' plain
+    chains (`forest_kernel` answering False) and counts no launch."""
+    from arroy_tpu_torch import probe, search
+    from arroy_tpu_torch.ops import rescore as rs
+
+    def run(fn):
+        with monkeypatch.context() as m:
+            m.setattr(probe, "forest_kernel", lambda *_a: False)
+            m.setattr(search, "forest_kernel", lambda *_a: False)
+            n0 = rs.launches["rescore_topk"]
+            out = fn()
+            assert rs.launches["rescore_topk"] == n0
+        return out
+
+    return run
+
+
+def test_cuda_probe_stage3_launches_kernel5_once_a_batch(tmp_path, plain_forest_rescore):
+    """The probe on the card (bf16 and int8 tables): one `rescore_topk`
+    launch a batch, its answers tie-aware equal to the plain stage 3 fed
+    the same stage-2 candidates."""
+    from arroy_tpu_torch import probe
+    from arroy_tpu_torch.ops import rescore as rs
+
+    dev = require_cuda()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((20_000, 64)).astype(np.float32)
+    db = Database(str(tmp_path), device=dev)
+    w = Writer(db, 0, 64, metric="euclidean")
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(len(x)), x)
+        w.builder(seed=1).n_trees(4).build(wtxn)
+    r = Reader.open(db.read(), 0, db, metric="euclidean")
+    q = x[:48] + 0.3 * rng.standard_normal((48, 64)).astype(np.float32)
+    for dtype in ("bf16", "int8"):
+        s = r.searcher(10, search_k=4000, engine="forest", traversal="probe", probe_trees=4,
+                       probe_dtype=dtype)
+        assert s.route == "probe"
+        dq = s.prepare_queries(q)
+        seen = []
+        real = probe._rescore_slots
+
+        def record(*a):
+            seen.append(a)
+            return real(*a)
+
+        probe._rescore_slots = record
+        try:
+            n0 = rs.launches["rescore_topk"]
+            got = [s.device_fn(*dq) for _ in range(3)]
+            assert rs.launches["rescore_topk"] == n0 + 3
+        finally:
+            probe._rescore_slots = real
+        want = plain_forest_rescore(lambda: probe._rescore_slots_plain(*seen[0]))
+        for ids, d in got:
+            tie_aware_equal(*_result_arrays((ids, d)), *_result_arrays(want), rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_small_batch_traversal_launches_kernel5(tmp_path, plain_forest_rescore):
+    """`nns()` (B = 1) and a forest searcher at B = 16 whose `rescore_mode`
+    answers "exact", unfiltered and filtered at 10% of the ids: one launch a
+    batch, answers tie-aware equal to the plain chain on the card."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    gr, _, q = _traversal_pair(tmp_path, m=20_000, d=48)
+    filt = np.random.default_rng(2).choice(20_000, 2000, replace=False)
+    for cand in (None, filt):
+        n0 = rs.launches["rescore_topk"]
+        qb = gr.nns(10).search_k(600)
+        if cand is not None:
+            qb = qb.candidates(cand)
+        got = [qb.by_vector(v) for v in q[:8]]
+        assert rs.launches["rescore_topk"] == n0 + 8
+        want = plain_forest_rescore(lambda: [qb.by_vector(v) for v in q[:8]])
+        tie_aware_equal(*_result_arrays_of(got), *_result_arrays_of(want), rtol=1e-5, atol=1e-6)
+        s = gr.searcher(10, search_k=600, engine="forest", candidates=cand)
+        assert s.route == "traversal" and s.device_fn.rescore_mode(16) == "exact"
+        dq = s.prepare_queries(q[:16])
+        n0 = rs.launches["rescore_topk"]
+        got = _result_arrays(s.device_fn(*dq))
+        assert rs.launches["rescore_topk"] == n0 + 1
+        want = plain_forest_rescore(lambda: _result_arrays(s.device_fn(*dq)))
+        tie_aware_equal(*got, *want, rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_filter_pool_launches_kernel5(tmp_path, plain_forest_rescore):
+    """A filter that fits the budget is re-scored whole: one launch a batch,
+    equal to the plain chain on the card and to the CPU."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    gr, cr, q = _traversal_pair(tmp_path, "cosine", m=20_000, d=48)
+    cand = np.random.default_rng(3).choice(20_000, 300, replace=False)
+    kw = dict(search_k=600, engine="forest", candidates=cand, rescore="exact")
+    s = gr.searcher(10, **kw)
+    assert s.route == "filter_pool"
+    dq = s.prepare_queries(q)
+    n0 = rs.launches["rescore_topk"]
+    got = _result_arrays(s.device_fn(*dq))
+    assert rs.launches["rescore_topk"] == n0 + 1
+    tie_aware_equal(*got, *plain_forest_rescore(lambda: _result_arrays(s.device_fn(*dq))),
+                    rtol=1e-5, atol=1e-6)
+    cs_ = cr.searcher(10, **kw)
+    tie_aware_equal(*got, *_result_arrays(cs_.device_fn(*cs_.prepare_queries(q))), rtol=1e-5,
+                    atol=1e-6)
+
+
+def test_cuda_sharded_forest_and_probe_launch_kernel5_a_shard(plain_forest_rescore):
+    """4 shards on the card: the sharded forest and the sharded probe make one
+    `rescore_topk` launch a shard a call, and answer as their plain chains."""
+    from arroy_tpu_torch.ops import rescore as rs
+    from arroy_tpu_torch.parallel.forest import ShardedForestIndex
+    from arroy_tpu_torch.parallel.mesh import make_mesh
+
+    require_cuda()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((12_000, 48)).astype(np.float32)
+    q = x[:32] + 0.3 * rng.standard_normal((32, 48)).astype(np.float32)
+    idx = ShardedForestIndex.build(make_mesh(4), x, n_trees=3, seed=2)
+    for call in (lambda: idx.search(q, 10, search_k=2000),
+                 lambda: idx.probe_search(q, 10, search_k=2000, n_trees=3, block=16)):
+        call()  # the probe packs its tables
+        n0 = rs.launches["rescore_topk"]
+        got = call()
+        assert rs.launches["rescore_topk"] == n0 + 4
+        tie_aware_equal(*got, *plain_forest_rescore(call), rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_forest_rescore_splits_past_2_31():
+    """A list of B · c >= 2^31 candidates (c = 2,048, B = 2^20 + 1, rows of
+    4) goes to the kernel in two launches (`rescore_topk` alone refuses
+    it); sample queries of each launch equal the plain version."""
+    from arroy_tpu_torch.ops import rescore as rs
+
+    dev = require_cuda()
+    b, c, cap = 2**20 + 1, 2048, 1 << 16
+    s = _stage2_inputs(dev, "euclidean", b, cap, 4, live_share=1.0)
+    cand = torch.empty((b, c), dtype=torch.int64, device=dev)
+    cand.copy_(torch.arange(c, device=dev)[None, :].expand(b, c) * 31)
+    cand.add_(torch.arange(b, device=dev)[:, None] * 13).remainder_(cap)
+    valid = torch.ones((b, c), dtype=torch.bool, device=dev)
+    valid[:, 5::7] = False
+    common = (s["rows"], s["norms"], s["extras"], s["slot_to_id"], s["qv"], s["qn"], s["qe"])
+    with pytest.raises(ValueError, match="2\\^31"):
+        rs.rescore_topk(s["metric"], 4, 10, cand, valid, *common)
+    n0 = rs.launches["rescore_topk"]
+    ids, d = rs.forest_rescore(s["metric"], 4, 10, cand, valid, *common)
+    torch.cuda.synchronize()
+    assert rs.launches["rescore_topk"] == n0 + 2 and ids.shape == (b, 10)
+    for i in (0, 1, rs.MAX_CANDIDATES // c - 1, rs.MAX_CANDIDATES // c, b - 1):
+        sl = slice(i, i + 1)
+        rids, rd = rs.rescore_topk_reference(
+            s["metric"], 4, 10, cand[sl], valid[sl], s["rows"], s["norms"], s["extras"],
+            s["slot_to_id"], s["qv"][sl], s["qn"][sl], s["qe"][sl])
+        tie_aware_equal(ids[sl].cpu().numpy(), d[sl].cpu().numpy(), rids.cpu().numpy(),
+                        rd.cpu().numpy(), rtol=1e-5, atol=1e-6)
