@@ -24,6 +24,7 @@ import torch
 from .metrics import Metric
 from .models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT, KIND_SPLIT_NONE, Forest
 from .models.items import ItemStore
+from .utils import profiling
 
 #: pack entries that become device tensors (the rest stay host values)
 _TENSOR_KEYS = (
@@ -259,6 +260,7 @@ class DeviceIndex:
         )
 
     @staticmethod
+    @profiling.spanned("arroy.bind.device_index")
     def build(
         metric: type[Metric], dims: int, store: ItemStore, forest: Forest, device
     ) -> "DeviceIndex":

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 #: kernel launches on the card, per row type (test/smoke observability)
@@ -110,6 +111,17 @@ def _vec_bytes(blk_rows: torch.Tensor) -> int:
     return min(fits, key=lambda vb: (-(-row_bytes // (32 * vb)) * vb, -vb))
 
 
+def work(blk_rows: torch.Tensor, bid: torch.Tensor) -> dict:
+    """The work record of one call (`utils.profiling.counting`): B, C, P,
+    d, the rows' type and element bytes, and ``blocks``, the distinct block
+    ids in `bid`: the blocks a call must read."""
+    b, c = bid.shape
+    _, p, d = blk_rows.shape
+    return {"kernel": "gather_score", "B": b, "C": c, "P": p, "d": d,
+            "dtype": str(blk_rows.dtype).removeprefix("torch."),
+            "elem_bytes": blk_rows.element_size(), "blocks": int(torch.unique(bid).numel())}
+
+
 def gather_score(blk_rows: torch.Tensor, bid: torch.Tensor, qv: torch.Tensor) -> torch.Tensor:
     """Score per-query selected blocks against the queries.
 
@@ -118,6 +130,9 @@ def gather_score(blk_rows: torch.Tensor, bid: torch.Tensor, qv: torch.Tensor) ->
     qv:       [B, d] f32 queries
     returns:  [B, C, P] f32 raw dots ``q_b · row`` (no aux terms)
     """
+    sink = profiling.work_sink()
+    if sink is not None:
+        sink.append(work(blk_rows, bid))
     if blk_rows.device.type == "cpu":
         return gather_score_reference(blk_rows, bid, qv)
     if blk_rows.device.type != "cuda":

@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .fused_select import DEAD_KEY_MAX
 
@@ -190,18 +191,23 @@ def rescore_topk_reference(
     return finish_topk(metric, dims, k, d, slot_to_id, cand, normalize)
 
 
+def key_cut(c, keys, idxp, pos_to_slot, live):
+    """The top ``c`` of kernel 1's keys as candidates: [B, c] slots and
+    their validity (`torch.topk` over the keys)."""
+    selk, sel = torch.topk(keys, min(c, keys.shape[1]), dim=1)
+    cand = pos_to_slot[torch.gather(idxp, 1, sel).long()]
+    # keys at/below DEAD_KEY_MAX mark padding/dead positions (which alias
+    # slot 0 through pos_to_slot — key-masking also prevents duplicate ids)
+    return cand, live[cand] & (selk > DEAD_KEY_MAX)
+
+
 def cut_rescore_reference(
     metric, dims, k, c, keys, idxp, pos_to_slot, live, rows, norms, extras, slot_to_id,
     qv, qn, qe, normalize=True,
 ):
-    """Plain version of `cut_rescore`: `torch.topk` over the keys, then
+    """Plain version of `cut_rescore`: `key_cut`, then
     `rescore_topk_reference`."""
-    cw = min(c, keys.shape[1])
-    selk, sel = torch.topk(keys, cw, dim=1)
-    cand = pos_to_slot[torch.gather(idxp, 1, sel).long()]
-    # keys at/below DEAD_KEY_MAX mark padding/dead positions (which alias
-    # slot 0 through pos_to_slot — key-masking also prevents duplicate ids)
-    valid = live[cand] & (selk > DEAD_KEY_MAX)
+    cand, valid = key_cut(c, keys, idxp, pos_to_slot, live)
     return rescore_topk_reference(
         metric, dims, k, cand, valid, rows, norms, extras, slot_to_id, qv, qn, qe, normalize
     )
@@ -274,6 +280,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def work(entry, k, cand, valid, rows, n2=None) -> dict:
+    """The work record of one call (`utils.profiling.counting`): the
+    entry, B, c (candidates a query), n2 (the keys a query brings to the
+    cut; None for a list), d, k, the rows' type and element bytes, the
+    valid candidates, and ``rows``, the distinct slots among them: the
+    rows a call must read."""
+    b, c = cand.shape
+    return {"kernel": entry, "B": b, "c": c, "n2": n2, "d": rows.shape[1], "k": k,
+            "dtype": str(rows.dtype).removeprefix("torch."), "elem_bytes": rows.element_size(),
+            "valid": int(valid.sum()), "rows": int(torch.unique(cand[valid]).numel())}
+
+
 def cut_rescore(
     metric, dims, k, c, keys, idxp, pos_to_slot, live, rows, norms, extras, slot_to_id,
     qv, qn, qe, normalize=True,
@@ -290,6 +308,10 @@ def cut_rescore(
     Returns (ids [B, k] int64, d [B, k] f32), ascending; normalized with
     NaN where fewer than k candidates are valid, or raw (+inf) with
     ``normalize=False``."""
+    sink = profiling.work_sink()
+    if sink is not None:
+        sink.append(work("cut_rescore", k, *key_cut(c, keys, idxp, pos_to_slot, live), rows,
+                         keys.shape[1]))
     if rows.device.type == "cpu":
         return cut_rescore_reference(metric, dims, k, c, keys, idxp, pos_to_slot, live, rows,
                                      norms, extras, slot_to_id, qv, qn, qe, normalize)
@@ -330,6 +352,9 @@ def rescore_topk(
     qv [B, d], qn [B] f32 (``extras``, ``qe``: the plain version's only)
 
     Returns (ids [B, k] int64, d [B, k] f32) as `cut_rescore` does."""
+    sink = profiling.work_sink()
+    if sink is not None:
+        sink.append(work("rescore_topk", k, cand, valid, rows))
     if rows.device.type == "cpu":
         return rescore_topk_reference(metric, dims, k, cand, valid, rows, norms, extras,
                                       slot_to_id, qv, qn, qe, normalize)

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from ..models.forest import KIND_FREE, KIND_LEAF, KIND_SPLIT_NONE
+from ..utils import profiling
 from . import _build
 
 #: kernel launches on the card (test/smoke observability)
@@ -196,6 +197,15 @@ def l2_chase(next_idx: torch.Tensor, steps: int, sink: torch.Tensor) -> None:
     _build.check(rc, "chase")
 
 
+def work(pops: torch.Tensor, filtered: bool) -> dict:
+    """The work record of one call (`utils.profiling.counting`): B,
+    whether it was filtered, and the pops it reported, the longest
+    query's and in all (a query whose queue ran empty reports ``pmax``)."""
+    n = pops.numel()
+    return {"kernel": "traverse", "B": n, "filtered": filtered,
+            "pops_max": int(pops.max()) if n else 0, "pops_total": int(pops.sum())}
+
+
 def traverse(
     margins, node_table, leaf_items, roots, search_k, search_k_dyn, pmax, w,
     q_cap=None, l_cap=None, filter_words=None, stats=None,
@@ -214,8 +224,20 @@ def traverse(
     by the plain loop only (its step count): the kernel's steps are its
     pops, and nothing is read back from the card."""
     if margins.device.type == "cpu":
-        return traverse_reference(margins, node_table, leaf_items, roots, search_k, search_k_dyn,
-                                  pmax, w, q_cap, l_cap, filter_words, stats)
+        out = traverse_reference(margins, node_table, leaf_items, roots, search_k, search_k_dyn,
+                                 pmax, w, q_cap, l_cap, filter_words, stats)
+    else:
+        out = _launch(margins, node_table, leaf_items, roots, search_k, search_k_dyn, pmax, w,
+                      q_cap, l_cap, filter_words)
+    sink = profiling.work_sink()
+    if sink is not None:
+        sink.append(work(out[1], filter_words is not None))
+    return out
+
+
+def _launch(margins, node_table, leaf_items, roots, search_k, search_k_dyn, pmax, w,
+            q_cap, l_cap, filter_words):
+    """`traverse` on the card: kernel 4, one launch."""
     if margins.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {margins.device}")
     b, s_rows = margins.shape

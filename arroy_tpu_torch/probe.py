@@ -47,6 +47,7 @@ from .ops.binary import (
 from .ops.gather_score import gather_score
 from .ops.rescore import forest_kernel, forest_rescore
 from .search import _f32_matmul
+from .utils import profiling
 
 _INF = float("inf")
 _EPS = 1e-30
@@ -325,7 +326,8 @@ def build_tables(
 ) -> ProbeTables:
     """Probe tables on `device`, which the caller names (one upload per
     searcher geometry; cached on the DeviceIndex by `get_tables`)."""
-    t = build_tables_np(metric, dims, store, forest, n_trees, block, dtype)
+    with profiling.span("arroy.bind.probe_pack"):
+        t = build_tables_np(metric, dims, store, forest, n_trees, block, dtype)
     return ProbeTables(
         n_trees=t["n_trees"],
         block=t["block"],
@@ -338,6 +340,7 @@ def build_tables(
     )
 
 
+@profiling.spanned("arroy.bind.probe_tables")
 def get_tables(idx, state, n_trees: int, block: int, dtype: str) -> ProbeTables:
     """Cached probe tables on the (frozen) DeviceIndex instance."""
     cache = getattr(idx, "_probe_cache", None)
@@ -461,7 +464,8 @@ def _probe_core(
     packed = blk_rows.dtype == torch.int32  # sign-bit words (binary metric or "bq")
 
     # 1. rank all blocks of each probe tree with one matmul
-    bid = _rank_blocks(metric, L, nb_max, scale, cent, caux, valid, qv)
+    with profiling.span("arroy.probe.rank"):
+        bid = _rank_blocks(metric, L, nb_max, scale, cent, caux, valid, qv)
 
     # 2. score the selected blocks
     if metric.binary:
@@ -476,6 +480,7 @@ def _probe_core(
         qk = qv if blk_rows.dtype == torch.float32 else qv.to(torch.bfloat16).float()
         qk = qk.contiguous()
 
+    @profiling.spanned("arroy.probe.score")
     def score_blocks(bidc):
         """Score one [B, c] slab of selected block ids (-1 pad)."""
         safe = torch.clamp(bidc, min=0)
@@ -517,6 +522,7 @@ def _probe_core(
             keep = keep & fmask[torch.clamp(bslot, min=0)]
         return torch.where(keep, s2, -_INF), torch.where(keep, bslot, -1)
 
+    @profiling.spanned("arroy.probe.cut")
     def cut(s2, bslot, width):
         """Top-`width` block scores of a [B, c, P] slab, with their slots."""
         s2f = s2.reshape(b, -1)
@@ -537,23 +543,25 @@ def _probe_core(
         bid_p = torch.nn.functional.pad(bid, (0, nch * ch - C), value=-1)
         k2c = min(k2, ch * P)
         parts = [cut(*score_blocks(bid_p[:, i * ch : (i + 1) * ch]), k2c) for i in range(nch)]
-        allv = torch.cat([v for v, _ in parts], dim=1)
-        alls = torch.cat([s for _, s in parts], dim=1)
-        if k2 < allv.shape[1]:
-            sel_s, i = torch.topk(allv, k2, dim=1)
-            cand = torch.gather(alls, 1, i)
-        else:
-            sel_s, cand = allv, alls
+        with profiling.span("arroy.probe.cut"):
+            allv = torch.cat([v for v, _ in parts], dim=1)
+            alls = torch.cat([s for _, s in parts], dim=1)
+            if k2 < allv.shape[1]:
+                sel_s, i = torch.topk(allv, k2, dim=1)
+                cand = torch.gather(alls, 1, i)
+            else:
+                sel_s, cand = allv, alls
 
     # 3. slot-dedup FIRST (cross-tree duplicates are 20-30% at T=4..8),
     # then the exact f32 re-score of each surviving slot, then top-k
-    ss, order = torch.sort(cand, dim=1, stable=True)
-    sv = torch.gather(sel_s, 1, order)
-    dup = torch.zeros_like(ss, dtype=torch.bool)
-    dup[:, 1:] = ss[:, 1:] == ss[:, :-1]
-    live = (ss >= 0) & (sv > -_INF) & ~dup
-    return _rescore_slots(metric, dims, k, ss, live, rows, norms, extras, slot_to_id,
-                          qv, qn, qe, normalize)
+    with profiling.span("arroy.probe.rescore"):
+        ss, order = torch.sort(cand, dim=1, stable=True)
+        sv = torch.gather(sel_s, 1, order)
+        dup = torch.zeros_like(ss, dtype=torch.bool)
+        dup[:, 1:] = ss[:, 1:] == ss[:, :-1]
+        live = (ss >= 0) & (sv > -_INF) & ~dup
+        return _rescore_slots(metric, dims, k, ss, live, rows, norms, extras, slot_to_id,
+                              qv, qn, qe, normalize)
 
 
 def _rescore_slots(metric, dims, k, ss, live, rows, norms, extras, slot_to_id, qv, qn, qe,
@@ -634,6 +642,7 @@ class ProbeFn:
             self.idx.metric, self.L, t.nb_max, self.scale, t.cent, t.caux, t.valid, qv
         )
 
+    @profiling.spanned("arroy.probe")
     def __call__(self, qv, qn, qe, qf):
         idx, t = self.idx, self.tables
         return _probe_core(

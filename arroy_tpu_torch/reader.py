@@ -34,6 +34,7 @@ from .search import (
     search_batch,
 )
 from .store.database import Database, IndexState
+from .utils import profiling
 from .utils.itemset import ItemSet
 from .version import Version
 
@@ -239,22 +240,27 @@ class Searcher:
             raise ValueError(f"unknown engine {engine!r}")
 
     def prepare_queries(self, vectors: np.ndarray):
-        """Upload a query matrix once; returns device (qv, qn, qe, qf)."""
-        r = self._reader
-        vectors = np.asarray(vectors, dtype=np.float32)
-        if vectors.ndim != 2 or vectors.shape[1] != r.dimensions():
-            raise InvalidVecDimension(r.dimensions(), int(vectors.shape[-1]))
-        qv = r.metric.encode_np(vectors)
-        qn = r.metric.item_norms_np(qv, r.dimensions())
-        n = len(qv)
-        qf = np.zeros(n, np.float32) if r.metric.has_extra else np.ones(n, np.float32)
-        if r.metric.binary:
-            qv = qv.view(np.int32)
-        dev = self._dev.device
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for a in (qv, qn, np.zeros(n, np.float32), qf)
-        )
+        """Upload a query matrix once; returns device (qv, qn, qe, qf).
+        Each call starts a request (`utils.profiling.next_request`)."""
+        profiling.next_request()
+        with profiling.span("arroy.entry.prepare"):
+            r = self._reader
+            vectors = np.asarray(vectors, dtype=np.float32)
+            if vectors.ndim != 2 or vectors.shape[1] != r.dimensions():
+                raise InvalidVecDimension(r.dimensions(), int(vectors.shape[-1]))
+            with profiling.span("arroy.entry.encode"):
+                qv = r.metric.encode_np(vectors)
+                qn = r.metric.item_norms_np(qv, r.dimensions())
+                n = len(qv)
+                qf = np.zeros(n, np.float32) if r.metric.has_extra else np.ones(n, np.float32)
+                qe = np.zeros(n, np.float32)
+                if r.metric.binary:
+                    qv = qv.view(np.int32)
+            with profiling.span("arroy.entry.upload"):
+                dev = self._dev.device
+                return tuple(
+                    torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (qv, qn, qe, qf)
+                )
 
     def __call__(self, vectors: np.ndarray) -> list[list[tuple[int, float]]]:
         """Host convenience: numpy in, result lists out."""
@@ -354,18 +360,19 @@ class Reader:
         small tier only, and a filtered search runs at 1.  A custom
         metric (`metrics.register_metric`) has no exact engine, so
         ``engine="auto"`` serves it through the forest."""
-        qb = QueryBuilder(self, count)
-        if search_k is not None:
-            qb.search_k(search_k)
-        if oversampling is not None:
-            qb.oversampling(oversampling)
-        if candidates is not None:
-            qb.candidates(candidates)
-        return Searcher(
-            self, qb, rescore=rescore, traversal=traversal, engine=engine,
-            precision=precision, multipop=multipop, probe_trees=probe_trees,
-            probe_block=probe_block, probe_dtype=probe_dtype,
-        )
+        with profiling.span("arroy.bind"):
+            qb = QueryBuilder(self, count)
+            if search_k is not None:
+                qb.search_k(search_k)
+            if oversampling is not None:
+                qb.oversampling(oversampling)
+            if candidates is not None:
+                qb.candidates(candidates)
+            return Searcher(
+                self, qb, rescore=rescore, traversal=traversal, engine=engine,
+                precision=precision, multipop=multipop, probe_trees=probe_trees,
+                probe_block=probe_block, probe_dtype=probe_dtype,
+            )
 
     # -- exact search oracle --------------------------------------------
     def exact_by_vectors(self, vectors, count: int, fast: bool = False):

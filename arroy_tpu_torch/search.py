@@ -82,6 +82,7 @@ from .ops.rescore import cut_rescore, forest_kernel, forest_rescore, rescore_top
 from .ops.rescore import finish_topk as _finish
 from .ops.traverse import POP_BLOCK, traverse
 from .ops.traverse import traverse_reference as _traverse_batch  # noqa: F401 (the plain loop's name)
+from .utils import profiling
 
 _INF = float("inf")
 _F32_EPS = float(np.finfo(np.float32).eps)
@@ -283,14 +284,17 @@ def _exact_fused(metric, dims, k, c, int8, tables, rows, norms, extras, slot_to_
     """Fused-select stage 1 (kernel 1) + key cut, exact re-score and top-k
     (kernel 5, `cut_rescore`) (`_exact_fused_impl`)."""
     xq, mult, add, pos_to_slot = tables
-    q, qsc = _fused_queries(qv, xq.shape[1], int8)
-    keys, idxp = fused_block_select(q, xq, qsc, mult, add)
-    return cut_rescore(
-        metric, dims, k, c, keys, idxp, pos_to_slot, live, rows, norms, extras, slot_to_id,
-        qv, qn, qe,
-    )
+    with profiling.span("arroy.exact.select"):
+        q, qsc = _fused_queries(qv, xq.shape[1], int8)
+        keys, idxp = fused_block_select(q, xq, qsc, mult, add)
+    with profiling.span("arroy.exact.rescore"):
+        return cut_rescore(
+            metric, dims, k, c, keys, idxp, pos_to_slot, live, rows, norms, extras, slot_to_id,
+            qv, qn, qe,
+        )
 
 
+@profiling.spanned("arroy.bind.fused_tables")
 def _fused_tables(metric, rows, norms, live, int8: bool):
     """Bind-time corpus tables for the fused select kernel (`_fused_tables`).
 
@@ -508,6 +512,7 @@ def make_exact_fn(
         live = live & torch.from_numpy(mask).to(idx.device)
 
     if metric.binary:
+        @profiling.spanned("arroy.exact.bq_matrix")
         def bq_fn(qv, qn, qe, qf):
             b = int(qv.shape[0])
             if not _streams(b, idx.cap):
@@ -517,6 +522,7 @@ def make_exact_fn(
         return bq_fn, "bq_matrix"
 
     if metric.name == "manhattan":
+        @profiling.spanned("arroy.exact.exact_batch")
         def man_fn(qv, qn, qe, qf):
             return _exact_batch(metric, dims, k, rows, norms, extras, s2i, live, qv, qn, qe)
 
@@ -536,6 +542,7 @@ def make_exact_fn(
         )
 
     if precision == "f32x1":
+        @profiling.spanned("arroy.exact.f32x1")
         def f32x1_fn(qv, qn, qe, qf):
             if _streams(int(qv.shape[0]), idx.cap):
                 return scan(qv, qn, qe, rows.dtype)
@@ -548,6 +555,7 @@ def make_exact_fn(
     if precision == "f32":
         c32 = min(max(_next_pow2(8 * k), 128), idx.cap)
 
+        @profiling.spanned("arroy.exact.f32")
         def f32_fn(qv, qn, qe, qf):
             if _streams(int(qv.shape[0]), idx.cap):
                 return scan(qv, qn, qe, rows.dtype)
@@ -563,6 +571,7 @@ def make_exact_fn(
     if _fused_gate(idx, k, int8):
         tables = _fused_tables(metric, rows, norms, live, int8)
 
+        @profiling.spanned("arroy.exact.fused_select")
         def fused_fn(qv, qn, qe, qf):
             return _exact_fused(
                 metric, dims, k, c, int8, tables, rows, norms, extras, s2i, live, qv, qn, qe
@@ -577,6 +586,7 @@ def make_exact_fn(
     # past it (int8 too, as in the JAX package)
     quant: list = []
 
+    @profiling.spanned("arroy.exact.unfused")
     def unfused_fn(qv, qn, qe, qf):
         if _streams(int(qv.shape[0]), idx.cap):
             return scan(qv, qn, qe, torch.bfloat16)
@@ -1026,6 +1036,7 @@ class TraversalFn:
             return self._steps + int(self.last_pops.max())
         return self._steps
 
+    @profiling.spanned("arroy.traversal.margins")
     def margins(self, qv, qf):
         idx = self.idx
         return idx.metric.margin_matrix(idx.normals, idx.aux, qv, qf)
@@ -1048,6 +1059,7 @@ class TraversalFn:
         self._steps += stats.get("steps", 0)  # the plain loops'; kernel 4 fills none
         return out
 
+    @profiling.spanned("arroy.traversal.walk")
     def walk(self, margins):
         """The pop loop of a batch: leaf logs, or filtered candidates."""
         self._steps, self._kernel_ran = 0, False
@@ -1069,6 +1081,7 @@ class TraversalFn:
         self.last_pops = pops
         return out
 
+    @profiling.spanned("arroy.traversal.expand")
     def expand(self, out):
         """Leaf logs → [B, cap] candidate slots (filtered output as it is)."""
         if self.filter_words is not None:
@@ -1092,6 +1105,7 @@ class TraversalFn:
     def rescore_mode(self, b: int) -> str:
         return rescore_mode(self.idx.metric, b, self.cap, self.idx.n_items, self.rescore_want)
 
+    @profiling.spanned("arroy.traversal.rescore")
     def rescore(self, cand, qv, qn, qe):
         idx = self.idx
         mode = self.rescore_mode(int(qv.shape[0]))
@@ -1110,6 +1124,7 @@ class TraversalFn:
         """Everything after the margins (a test hands in another's margins)."""
         return self.rescore(self.expand(self.walk(margins)), qv, qn, qe)
 
+    @profiling.spanned("arroy.traversal")
     def __call__(self, qv, qn, qe, qf):
         return self.run(self.margins(qv, qf), qv, qn, qe)
 
@@ -1162,6 +1177,7 @@ def make_search_fn(
         cand_const = torch.from_numpy(cand_np).to(idx.device)
         kf = max(min(_next_pow2(count), capf), 1)
 
+        @profiling.spanned("arroy.filter_pool")
         def filter_fn(qv, qn, qe, qf):
             b = qv.shape[0]
             mode = rescore_mode(idx.metric, int(b), capf, idx.n_items, rescore)

@@ -30,6 +30,8 @@ a `parallel.mesh.Mesh` (`parallel.build.grow_trees_sharded`).
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Iterator, Optional
@@ -44,6 +46,7 @@ from .models import items as items_mod
 from .models.forest import KIND_LEAF, Forest, NodeIdAllocator
 from .progress import CancelFn, MainStep, ProgressFn, SubStep, WriterProgress
 from .store.database import Database, IndexState, Metadata, WriteTxn
+from .utils import profiling
 from .utils.itemset import ItemSet
 from .version import CURRENT_VERSION
 
@@ -117,7 +120,16 @@ class ArroyBuilder:
         return self
 
     def build(self, wtxn: WriteTxn) -> None:
-        self._writer._build(wtxn, self._opt)
+        """Build the forest; the span ``arroy.build`` holds one child span
+        a main step reported to `progress`, from its report to the next."""
+        opt = self._opt
+        with profiling.span("arroy.build"), contextlib.ExitStack() as step:
+            def progress(p: WriterProgress) -> None:
+                step.close()
+                step.enter_context(profiling.span("arroy.build." + p.main.name.lower()))
+                opt.progress(p)
+
+            self._writer._build(wtxn, dataclasses.replace(opt, progress=progress))
 
 
 def target_n_trees(
@@ -221,10 +233,11 @@ class Writer:
 
     def add_items(self, wtxn: WriteTxn, items, vectors) -> None:
         """Bulk add — vectorized encode of a whole [n, dims] matrix."""
-        st = self._state(wtxn)
-        items = np.asarray(items)
-        st.store.put_many(items, np.asarray(vectors, dtype=np.float32))
-        st.updated.update(int(i) for i in items)
+        with profiling.span("arroy.add_items"):
+            st = self._state(wtxn)
+            items = np.asarray(items)
+            st.store.put_many(items, np.asarray(vectors, dtype=np.float32))
+            st.updated.update(int(i) for i in items)
 
     def append_item(self, wtxn: WriteTxn, item: int, vector) -> None:
         """Fast ordered insert; errors when `item` would not be the last key

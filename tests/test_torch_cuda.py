@@ -1065,7 +1065,9 @@ def test_cuda_budget_build_keeps_the_invariants(metric):
 
 def test_cuda_profiling_trace_names_kernel_1(tmp_path):
     """`utils.profiling.trace` around one exact batch records kernel 1's
-    CUDA function by name, in the profiler's tables and in the trace file."""
+    CUDA function by name, in the profiler's tables and in the trace file,
+    under the program's span of stage 1 (``arroy.exact.select``), which
+    adds no event on the card."""
     import os
 
     from arroy_tpu_torch.utils import profiling
@@ -1087,9 +1089,59 @@ def test_cuda_profiling_trace_names_kernel_1(tmp_path):
     assert fused_select.launches["fused_select_bf16"] == n0 + 1
     assert np.array_equal(ids[:, 0].cpu().numpy(), np.arange(256))
     assert any("fused_select_kernel" in e.key for e in prof.key_averages())
+    assert not any(e.name.startswith("arroy.") for e in prof.events()
+                   if e.device_type != torch.autograd.DeviceType.CPU)
     (name,) = os.listdir(tmp_path)
     with open(tmp_path / name) as f:
-        assert "fused_select_kernel" in f.read()
+        text = f.read()
+    assert "fused_select_kernel" in text and '"arroy.exact.select"' in text
+
+
+def test_cuda_counting_records_each_kernel():
+    """`utils.profiling.counting` around one request of each engine on the
+    card: one work record a launch of kernels 3, 4 and 5, each holding the
+    work its inputs set, and the answers of the request outside it."""
+    from arroy_tpu_torch.ops import rescore, traverse
+    from arroy_tpu_torch.utils import profiling
+
+    dev = require_cuda()
+    x = np.random.default_rng(6).standard_normal((20_000, 64)).astype(np.float32)
+    db = Database(None, device=dev)
+    w = Writer(db, 0, 64, metric="cosine")
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(len(x)), x)
+        w.builder(seed=2).n_trees(8).build(wtxn)
+    r = Reader.open(db.read(), 0, db, metric="cosine")
+    q = x[:512] + 0.01
+    engines = {
+        "exact": (r.searcher(10), {"cut_rescore"}),
+        "traversal": (r.searcher(10, search_k=2000, engine="forest", traversal="xla",
+                                  rescore="exact"), {"traverse", "rescore_topk"}),
+        "probe": (r.searcher(10, search_k=2000, engine="forest", traversal="probe",
+                              probe_trees=4), {"gather_score", "rescore_topk"}),
+    }
+    for name, (s, kernels) in engines.items():
+        dq = s.prepare_queries(q)
+        ids, d = s.device_fn(*dq)
+        n0 = {**gs.launches, **traverse.launches, **rescore.launches}
+        with profiling.counting() as works:
+            ids2, d2 = s.device_fn(*dq)
+        n1 = {**gs.launches, **traverse.launches, **rescore.launches}
+        assert torch.equal(ids, ids2) and torch.equal(d, d2), name
+        assert {x["kernel"] for x in works} == kernels, name
+        launched = {k.rpartition("_")[0] if k.startswith("gather") else k: n1[k] - n0[k]
+                    for k in n1 if n1[k] > n0[k]}
+        assert launched == {k: sum(x["kernel"] == k for x in works) for k in kernels}, name
+        for rec in works:
+            assert rec["B"] == len(q)
+            if rec["kernel"] == "traverse":
+                assert rec["pops_total"] == int(s.device_fn.last_pops.sum())
+                assert rec["pops_max"] == int(s.device_fn.last_pops.max())
+            elif rec["kernel"] == "gather_score":
+                assert 0 < rec["blocks"] <= min(rec["B"] * rec["C"], len(s.device_fn.tables.valid))
+            else:
+                assert 0 < rec["rows"] <= min(rec["valid"], len(x))
+                assert rec["valid"] <= rec["B"] * rec["c"]
 
 
 def test_cuda_upgraded_index_search_matches_cpu(tmp_path):

@@ -315,16 +315,16 @@ def test_prepare_changing_distance(tmp_path):
 def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     from arroy_tpu_torch.utils import profiling
 
-    lines = []
-    with profiling.timed("region", sink=lines.append):
-        with profiling.trace(str(tmp_path)) as prof:
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.span("arroy.test.region"):
             torch.mm(torch.ones(8, 8), torch.ones(8, 8))
-    assert lines and lines[0].startswith("region: ")
     assert any(e.key == "aten::mm" for e in prof.key_averages())
     (name,) = os.listdir(tmp_path)
     assert name.endswith(".pt.trace.json")
     events = json.load(open(tmp_path / name))["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    (region,) = [e for e in events if e.get("name") == "arroy.test.region"]
+    assert "request" in region["args"]
 
 
 def test_entry_traverses_the_tiny_index():
