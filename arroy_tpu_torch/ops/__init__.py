@@ -1,6 +1,6 @@
-"""Low-level device ops: packing, popcounts and the five hand-written
+"""Low-level device ops: packing, popcounts and the six hand-written
 kernels (`fused_select`, `bq_kernels`, `gather_score`, `traverse`,
-`rescore`; built by `_build` from ``csrc/``)."""
+`rescore`, `rank_select`; built by `_build` from ``csrc/``)."""
 
 from .binary import (
     bq_dot_rowwise,

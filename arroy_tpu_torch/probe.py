@@ -9,9 +9,11 @@ deviation from the reference's best-first traversal, PARITY.md):
    than P are split, the tail is padded).  Block member rows are stored
    contiguously ([NB, P, d], bf16 / f32 / int8 or packed sign bits), one
    copy per probe tree, with a per-block centroid.
-2. A query ranks ALL blocks of each tree with ONE centroid matmul and
+2. A query ranks ALL blocks of each tree by its centroid score and
    takes the top-L blocks per tree (`search_k ≈ T·L·P` keeps arroy's
-   candidate-budget semantics).
+   candidate-budget semantics): on the card one kernel that never writes
+   the [B, T·nb_max] scores (kernel 6, `ops/rank_select`), else one
+   centroid matmul and `torch.topk`.
 3. The selected blocks are scored by the gather-score kernel
    (`ops/gather_score`), which streams each block once and never
    materializes the gathered rows; a top-k2 cut, a slot-dedup and an
@@ -45,8 +47,8 @@ from .ops.binary import (
     unpack_bits_np,
 )
 from .ops.gather_score import gather_score
+from .ops.rank_select import rank_blocks
 from .ops.rescore import forest_kernel, forest_rescore
-from .search import _f32_matmul
 from .utils import profiling
 
 _INF = float("inf")
@@ -359,18 +361,13 @@ def get_tables(idx, state, n_trees: int, block: int, dtype: str) -> ProbeTables:
 
 
 def _rank_blocks(metric, L, nb_max, scale, cent, caux, valid, qv) -> torch.Tensor:
-    """Stage 1: the top-L blocks of each probe tree → [B, T·L] int64 ids.
+    """Stage 1: the top-L blocks of each probe tree → [B, T·L] int64 ids
+    (kernel 6 on the card, `ops.rank_select.rank_blocks`).
 
     Binary metrics store packed queries; the centroid table lives in the
     ±1 decode space, so the query is decoded once here."""
-    b = qv.shape[0]
-    T = cent.shape[0] // nb_max
     qcent = unpack_bits(qv, cent.shape[1]) if metric.binary else qv
-    score = float(scale) * _f32_matmul(qcent, cent) - caux[None, :]
-    score = torch.where(valid[None, :], score, -_INF)
-    topL = torch.topk(score.reshape(b, T, nb_max), L, dim=2).indices  # [B, T, L]
-    base = (torch.arange(T, device=qv.device) * nb_max)[None, :, None]
-    return (topL + base).reshape(b, T * L)
+    return rank_blocks(qcent.contiguous(), cent, caux, valid, scale, L, nb_max)
 
 
 def gather_chunk(b: int, blk_rows: torch.Tensor) -> int:
@@ -463,7 +460,7 @@ def _probe_core(
     P = blk_rows.shape[1]
     packed = blk_rows.dtype == torch.int32  # sign-bit words (binary metric or "bq")
 
-    # 1. rank all blocks of each probe tree with one matmul
+    # 1. rank all blocks of each probe tree (kernel 6 on the card)
     with profiling.span("arroy.probe.rank"):
         bid = _rank_blocks(metric, L, nb_max, scale, cent, caux, valid, qv)
 

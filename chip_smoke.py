@@ -11,7 +11,7 @@ exits non-zero:
 1. device — requires CUDA (never runs on the CPU); prints the card's name
    and power limit as nvidia-smi reports them;
 2. build — compiles the hand-written kernels from `arroy_tpu_torch/csrc/`
-   (kernels 1-5), one nvcc per source, all started together, and counts
+   (kernels 1-6), one nvcc per source, all started together, and counts
    tensor-core instructions in their SASS with cuobjdump: kernel 1's two
    instances (wgmma) and kernel 2 (one-bit mma.sync) must have some;
 3. kernel parity — each kernel against its plain PyTorch version on the
@@ -36,7 +36,12 @@ exits non-zero:
    512 / 1,000 / 4,000, f32 and bf16 rows, the traversal's at B = 1 and
    16, c = cap at search_k 2000 and 8000): ids tie-aware equal, the
    largest relative error, kernel ms (device time) beside its bytes bound
-   and the plain version's ms;
+   and the plain version's ms.  Kernel 6 (the probe's stage 1) gets a
+   `[parity] rank_select` line a shape of `RANK_CASES` (the probe cell's
+   tables at B = 2048, 256, 64, 48 and 1, L = 128, 768-wide tables):
+   every (query, tree)'s blocks held to float64 scores, the blocks that
+   differ from the plain chain counted, kernel and plain ms in turns
+   beside the bound;
 4. slice — the bench configuration (100,000 x 768 clustered corpus,
    euclidean, 10 trees): add, build, commit to disk, reopen, validate,
    then exact search at f32x1 / bf16 / int8 on 4 batches of 2048
@@ -55,7 +60,10 @@ exits non-zero:
    `probe.CUT_SHARE` past the floor), qps and recall; kernel 5's
    `rescore_topk` once a batch for every table type (the probe's stage
    3), tie-aware equal on batch 0 to the plain stage-3 chain fed the same
-   stage-2 candidates; then kernel 3 timed on a real selection of
+   stage-2 candidates; stage 1 once a batch on the route
+   `ops.rank_select.uses_kernel` picks (kernel 6, or the plain chain
+   counted) for each served searcher at B = 256 and 2048; then kernel 3
+   timed on a real selection of
    blocks, with the share of distinct blocks in the whole selection and
    in the probe's chunks of it, and its rates on total, distinct and read
    bytes;
@@ -180,6 +188,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import importlib
 import io
 import json
@@ -212,7 +221,7 @@ CORPUS_SLICE = 65_536
 #: phase 10: the upgrade's share of the CLI corpus, and the batch served
 #: before and after it
 M_UPGRADE, B_UPGRADE = 100_000, 2048
-KERNEL_SOURCES = ("fused_select", "hamming", "gather_score", "traverse", "rescore")
+KERNEL_SOURCES = ("fused_select", "hamming", "gather_score", "traverse", "rescore", "rank_select")
 #: published peaks of one H100 SXM at 700 W (dense): bytes/s and op/s
 HBM_BPS = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -859,6 +868,147 @@ def rescore_parity(dev, rec):
             f"plain {plain_ms:.4f} ms, launches 1")
         del ids, rids, args
     del corpus
+
+
+#: kernel 6's shapes (B, T, nb_max, d, L, metric): the probe cell's stage 1
+#: (glove-100-angular's 1.18M items in 8 probe trees of ~23,100 blocks,
+#: d = 100, L = 25 at search_k 8000) at B = 2048 and 256, L = 128 (past
+#: the route's `MAX_L`), phase 6's 768-wide tables (8 trees of 4,360
+#: blocks, L = 9) at its batch of 256, a 768-wide table at L = 64 that the
+#: route sends to the plain chain at B = 256, and one, 48 and 64 queries
+#: (either side of `ops.rank_select.min_queries` at the cell's tables)
+RANK_CASES = (
+    (BATCH, 8, 23_100, 100, 25, "cosine"),
+    (256, 8, 23_100, 100, 25, "cosine"),
+    (BATCH, 8, 23_100, 100, 128, "euclidean"),
+    (256, 8, 4_360, 768, 9, "euclidean"),
+    (256, 4, 8_192, 768, 64, "dot-product"),
+    (1, 8, 23_100, 100, 25, "cosine"),
+    (48, 8, 23_100, 100, 25, "cosine"),
+    (64, 8, 23_100, 100, 25, "cosine"),
+)
+
+
+@contextlib.contextmanager
+def stage1_route(route):
+    """The probe's stage 1 (`ops.rank_select.rank_blocks`) forced to kernel
+    6 ("kernel") or to the plain chain ("plain"), whatever the route rule
+    picks at the shape."""
+    from arroy_tpu_torch.ops import rank_select as rs
+
+    saved = rs.uses_kernel
+    rs.uses_kernel = lambda *_a: route == "kernel"
+    try:
+        yield
+    finally:
+        rs.uses_kernel = saved
+
+
+def stage1_routes(served, batches):
+    """Phase 6's stage 1 on each served probe searcher, at phase 6's batch
+    and at the probe cell's 2048 queries: one call a batch, on the route
+    `ops.rank_select.uses_kernel` picks (a kernel 6 launch, or a plain call
+    counted); the ids at 2048 that differ from batch by batch counted."""
+    import torch
+
+    from arroy_tpu_torch.ops import rank_select as rk
+
+    routes = {}
+    whole = np.concatenate(batches)
+    for kind, (s, *_) in served.items():
+        fn = s.device_fn
+        for b, qs in ((len(batches[0]), batches[0]), (len(whole), whole)):
+            n0, p0 = rk.launches["rank_select"], rk.plain_calls["rank_blocks"]
+            ids = fn(*s.prepare_queries(qs))[0][:, :K].cpu().numpy()
+            kernel = rk.uses_kernel(b, fn.L, D, fn.tables.cent.shape[0], torch.device("cuda"))
+            got = (rk.launches["rank_select"] - n0, rk.plain_calls["rank_blocks"] - p0)
+            assert got == ((1, 0) if kernel else (0, 1)), (kind, b, fn.L, got)
+            routes[f"{kind} B={b} L={fn.L}"] = "kernel" if kernel else "plain"
+            if b != len(batches[0]):
+                want = np.concatenate([fn(*s.prepare_queries(q))[0][:, :K].cpu().numpy()
+                                       for q in batches])
+                routes[f"{kind} ids differing, B={b} against batch by batch"] = \
+                    ids_differing(ids, want)
+    say("probe", f"stage 1 routes (kernel 6 or the plain chain, once a batch): {json.dumps(routes)}")
+    return routes
+
+
+def rank_select_parity(dev, rec, checked=64):
+    """Phase 3 for kernel 6 (`ops.rank_select`): at each of `RANK_CASES`,
+    one launch a call; on the first `checked` queries, each (query, tree)'s
+    L blocks against float64 scores (every block above the L-th by more
+    than 1e-5 of its magnitude taken, none below it by more), and the
+    blocks the plain chain takes differently; the kernel and the plain
+    chain timed in turns (kernel, plain, kernel, plain; `device_ms`) beside
+    the bound: 2·B·T·nb·d operations at the f32 FFMA peak, or the
+    centroids, caux, mask and queries read and the ids written at the
+    memory rate.  One `[parity] rank_select` line a shape."""
+    import torch
+
+    from arroy_tpu_torch.ops import rank_select as rs
+
+    rng = np.random.default_rng(6)
+    for b, T, nb, d, L, metric in RANK_CASES:
+        scale = 2 if metric == "euclidean" else 1
+        cent = torch.randn((T * nb, d), device=dev, generator=torch.Generator(dev).manual_seed(b))
+        if metric == "cosine":
+            cent /= cent.norm(dim=1, keepdim=True)
+        caux = (cent * cent).sum(1) if metric == "euclidean" else torch.zeros(T * nb, device=dev)
+        valid = torch.from_numpy(rng.random(T * nb) < 0.97).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+        args = (q, cent, caux, valid, scale, L, nb)
+        n0 = rs.launches["rank_select"]
+        with stage1_route("kernel"):
+            got = rs.rank_blocks(*args)
+        torch.cuda.synchronize()
+        assert rs.launches["rank_select"] == n0 + 1
+        want = rs.rank_blocks_reference(*args)
+        n = min(b, checked)
+        q64, c64 = q[:n].double(), cent.double()
+        s64 = torch.where(valid[None, :], scale * (q64 @ c64.T) - caux.double()[None, :],
+                          -float("inf")).reshape(n, T, nb)
+        tol = (1e-5 * (scale * (q64.abs() @ c64.abs().T) + caux.double().abs()[None, :])
+               ).reshape(n, T, nb)
+        theta = torch.topk(s64, L, dim=2).values[..., -1:]
+        base = (torch.arange(T, device=dev) * nb)[None, :, None]
+        differ = 0
+        for name, ids in (("kernel", got), ("plain", want)):
+            local = ids[:n].reshape(n, T, L) - base
+            taken = torch.zeros((n, T, nb), dtype=torch.bool, device=dev).scatter_(2, local, True)
+            assert bool((taken.sum(2) == L).all()), f"rank_select {name}: a block twice"
+            assert not bool(((s64 > theta + tol) & ~taken).any()), f"{name}: a winner left out"
+            assert bool((s64.gather(2, local) >= theta - tol.gather(2, local)).all()), \
+                f"rank_select {name}: a loser taken"
+            if name == "kernel":
+                mine = taken
+            else:
+                differ = int((mine != taken).sum()) // 2
+        times = []
+        for route in ("kernel", "plain", "kernel", "plain"):
+            with stage1_route(route):
+                times.append(device_ms(lambda: rs.rank_blocks(*args), 10 if route == "kernel" else 3))
+        ms, plain_ms = min(times[0], times[2]), min(times[1], times[3])
+        nbytes = 4 * b * d + T * nb * (4 * d + 4 + 1) + 8 * b * T * L
+        bd = bound(nbytes, 2.0 * b * T * nb * d, "f32")
+        splits = ctypes.c_int(0)
+        assert rs._lib().rank_select_splits(b, T, nb, L, ctypes.byref(splits)) == 0
+        splits = splits.value
+        rule = "kernel" if rs.uses_kernel(b, L, d, T * nb, dev) else "plain"
+        shape = dict(B=b, T=T, nb_max=nb, d=d, L=L, metric=metric, splits=splits, ms=ms,
+                     plain_ms=plain_ms, turns_ms=times, **bd, route=rule,
+                     share_pct=100.0 * bd["bound_ms"] / ms, blocks_differing=differ)
+        r = rec["rank_select"]
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=plain_ms, **bd, library_ms=None,
+                     library="none: no single call computes the product, mask and per-tree top-L")
+        r.setdefault("shapes", []).append(shape)
+        say("parity", f"rank_select {metric} B={b} T={T} nb={nb} d={d} L={L} (x{splits} "
+            f"ranges): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in times)}), bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}; {shape['share_pct']:.1f}% of it); {n} queries checked, "
+            f"{differ} blocks differing from the plain chain (within 1e-5), launches 1; the "
+            f"route rule takes the {rule} route here")
+        del got, want, s64, tol, cent, q
 
 
 def l2_latency_ns(tv, n=1 << 19, steps=1 << 19):
@@ -2289,11 +2439,12 @@ def operator_slice(tmp):
     from arroy_tpu_torch.metrics import Euclidean
     from arroy_tpu_torch.models import items
     from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
-    from arroy_tpu_torch.ops import rescore as rs, traverse as tv
+    from arroy_tpu_torch.ops import rank_select as rk, rescore as rs, traverse as tv
     from arroy_tpu_torch.utils import profiling
     from arroy_tpu_torch.version import CURRENT_VERSION
 
-    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches, rk.launches,
+                rk.plain_calls)
 
     def counts():
         return {k: v for c in counters for k, v in c.items()}
@@ -2488,7 +2639,7 @@ def multidevice_slice(rec):
     from arroy_tpu_torch import Database, Reader, Writer, entry, probe
     from arroy_tpu_torch.models import items
     from arroy_tpu_torch.ops import bq_kernels as bk, fused_select as fs, gather_score as gs
-    from arroy_tpu_torch.ops import rescore as rs, traverse as tv
+    from arroy_tpu_torch.ops import rank_select as rk, rescore as rs, traverse as tv
     from arroy_tpu_torch.parallel.forest import ShardedForestIndex
     from arroy_tpu_torch.parallel.mesh import ShardedExactIndex, _host_queries, make_mesh
 
@@ -2496,7 +2647,8 @@ def multidevice_slice(rec):
     items._DEVICE_MIRROR.clear()
     torch.cuda.empty_cache()
     out = {}
-    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches, rk.launches,
+                rk.plain_calls)
     total = {k: 0 for c in counters for k in c}
 
     def reset():
@@ -2643,6 +2795,16 @@ def multidevice_slice(rec):
     # kernel 5 (`rescore_topk`) once a shard for every traversal and probe
     # call, and both answer as their plain chains on batch 0
     assert got_b["rescore_topk"] == N_SHARDS * (calls["traversal"] + calls["probe"]), (got_b, calls)
+    # stage 1 once a shard for every probe call, on the route the rule
+    # picks at the shard's L (kernel 6, or the plain chain counted)
+    tables = fidx.enable_probe(dtype="bf16")
+    L1 = fidx.probe_plan(K, out["sharded_probe"]["search_k"], tables, "bf16")["L"]
+    blocks = tables[0].cent.shape[0]
+    key = "rank_select" if rk.uses_kernel(B_PROBE, L1, D, blocks, torch.device("cuda")) \
+        else "rank_blocks"
+    assert got_b["rank_select"] + got_b["rank_blocks"] == N_SHARDS * calls["probe"], (got_b, calls)
+    assert got_b[key] > 0, (key, L1, got_b)
+    rec["rank_select"]["phase11_routes"] = {f"sharded probe B={B_PROBE} L={L1} blocks={blocks}": key}
     with uncounted(*counters):
         for name, fn in (("traversal", fidx.search), ("probe", fidx.probe_search)):
             sk = out[f"sharded_{name}"]["search_k"]
@@ -2924,7 +3086,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     from arroy_tpu_torch.ops import _build, bq_kernels as bk, fused_select as fs, gather_score as gs
-    from arroy_tpu_torch.ops import rescore as rs, traverse as tv
+    from arroy_tpu_torch.ops import rank_select as rk, rescore as rs, traverse as tv
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2990,10 +3152,15 @@ def main() -> int:
                                replaces="arroy_tpu/search.py:1512 re-score tail of "
                                         "_exact_f32_direct_impl, and :1266, :1312 (XLA fusion, no "
                                         "Pallas kernel)")
+    # kernel 6: the probe's stage 1 (XLA's in the JAX package)
+    rec["rank_select"] = dict(source="arroy_tpu_torch/csrc/rank_select.cu",
+                              replaces="arroy_tpu/probe.py _rank_blocks (jnp.dot, where, "
+                                       "lax.top_k; XLA, no Pallas kernel)")
     for inst, ops in mma_ops.items():
         rec[inst]["tensor_core_ops"] = ops
     kernel_parity(dev, rec)
     rescore_parity(dev, rec)
+    rank_select_parity(dev, rec)
     say("time", f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4-5. the exact slice (main path: counts from here)
@@ -3015,16 +3182,19 @@ def main() -> int:
     del x, queries, batches
 
     # 6. the probe slice (main path: counts from here)
-    for c in (gs.launches, rs.launches):
+    for c in (gs.launches, rs.launches, rk.launches, rk.plain_calls):
         for k in c:
             c[k] = 0
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         served, pbatches = probe_slice(tmp)
-        probe_launches = dict(gs.launches)
-        say("launches", f"probe path: {json.dumps({**probe_launches, **rs.launches})}")
+        probe_launches = {**gs.launches, **rk.launches}
+        say("launches", f"probe path: {json.dumps({**probe_launches, **rs.launches, **rk.plain_calls})}")
         assert rs.launches["rescore_topk"] > 0, "kernel 5 never launched on the probe path"
         rec["rescore_topk"]["phase6_launches"] = rs.launches["rescore_topk"]
+        rec["rank_select"].update(phase6_launches=rk.launches["rank_select"],
+                                  phase6_plain_calls=rk.plain_calls["rank_blocks"],
+                                  phase6_routes=stage1_routes(served, pbatches))
         say("probe", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         time_gather(gs, served, pbatches, rec)
         del served
@@ -3045,7 +3215,8 @@ def main() -> int:
 
     # 9. the incremental build on phase 8's euclidean index (no kernel of
     # its own: routing and the grow are plain PyTorch, so no count moves)
-    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches)
+    counters = (fs.launches, bk.launches, gs.launches, tv.launches, rs.launches, rk.launches,
+                rk.plain_calls)
     with uncounted(*counters):
         for c in counters:
             for k in c:
@@ -3064,9 +3235,11 @@ def main() -> int:
     say("launches", f"operator path: {json.dumps(p10)}")
     for name in rec:
         rec[name]["phase10_launches"] = p10[name]
+    rec["rank_select"]["phase10_plain_calls"] = p10["rank_blocks"]
     for kernel in ("fused_select", "bq_hamming", "gather_score", "traverse", "cut_rescore"):
         assert sum(n for k, n in p10.items() if k.startswith(kernel)) > 0, \
             f"{kernel} never launched on the operator path"
+    assert p10["rank_select"] + p10["rank_blocks"] > 0, "the probe's stage 1 never ran in phase 10"
     say("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     # 11. the multi-device layer on the one card (counts from 0 a part)
@@ -3074,6 +3247,7 @@ def main() -> int:
     say("launches", f"multi-device path: {json.dumps(p11)}")
     for name in rec:
         rec[name]["phase11_launches"] = p11[name]
+    rec["rank_select"]["phase11_plain_calls"] = p11["rank_blocks"]
     say("time", f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
     # 12. one threefry stream on every device (no kernel of its own: the

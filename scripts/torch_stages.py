@@ -19,16 +19,20 @@ Then, on the cell's request schedule:
    work goes to the innermost span covering its middle;
 3. the same requests again under `utils.profiling.counting()`, with no
    profiler: each hand kernel's work records, and the roofline share of
-   kernels 3, 4 and 5, their least time (below) over their device time
+   kernels 3, 4, 5 and 6, their least time (below) over their device time
    in step 2.
 
-Least times, at the HBM rate of `benchmark.kernels` (3.35 TB/s):
+Least times, at the HBM rate of `benchmark.kernels` (3.35 TB/s) and, for
+kernel 6, the f32 FFMA peak (`F32_PEAK`), whichever is larger:
 kernel 3 reads the distinct blocks, `bid`, the queries and writes the
 [B, C, P] f32 scores; kernel 4 takes the larger of its longest query's
 pops times one dependent L2 read (`L2_READ_S`) and the node rows and
 margins its pops touch; kernel 5 reads the distinct valid rows (row,
 norm, id), the keys and positions (cut) or the candidate list and mask,
-the queries, and writes the [B, k] ids and distances.
+the queries, and writes the [B, k] ids and distances; kernel 6 (the
+probe's stage 1, calls that took it) does 2·B·T·nb_max·d operations, or
+reads the centroids, caux, the mask and the queries and writes the
+[B, T·L] ids.
 
 Prints one JSON object (and writes it to ``--out`` if given).  Run
 from the repository root on a machine with a card:
@@ -60,6 +64,10 @@ L2_READ_S = 144e-9
 #: bytes a pop of kernel 4 reads: one node row (8 int32) and one margin
 POP_BYTES = 8 * 4 + 4
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: one NVIDIA H100 SXM's f32 rate outside the tensor cores (data sheet, 700 W)
+F32_PEAK = 67e12
+#: kernel -> CUDA function name: the benchmark's, and kernel 6's scan and merge
+FUNCTION = {**kernels.FUNCTION, 6: "rank_select_kernel"}
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")
 
@@ -72,6 +80,10 @@ def least_seconds(w: dict) -> float:
         return nbytes / kernels.HBM_BPS
     if w["kernel"] == "traverse":
         return max(w["pops_max"] * L2_READ_S, w["pops_total"] * POP_BYTES / kernels.HBM_BPS)
+    if w["kernel"] == "rank_select":
+        b, n, d = w["B"], w["T"] * w["nb_max"], w["d"]
+        nbytes = 4 * b * d + n * (4 * d + 4 + 1) + 8 * b * w["T"] * w["L"]
+        return max(2.0 * b * n * d / F32_PEAK, nbytes / kernels.HBM_BPS)
     b, c, d, k = w["B"], w["c"], w["d"], w["k"]
     lists = 8 * b * w["n2"] if w["n2"] is not None else 9 * b * c
     nbytes = w["rows"] * (d * w["elem_bytes"] + 4 + 8) + lists + 4 * b * d + 12 * b * k
@@ -140,7 +152,7 @@ def stages(trace: dict, requests: int) -> dict:
             st[key] /= requests
     merged = _union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     kernel_ms = {n: sum(e["dur"] for e in dev if f in e["name"]) / 1e3
-                 for n, f in kernels.FUNCTION.items()}
+                 for n, f in FUNCTION.items()}
     gaps: dict = {}
     for (_, e0), (s1, _) in zip(merged, merged[1:]):
         mid = 0.5 * (e0 + s1)
@@ -216,8 +228,10 @@ def main(argv=None) -> int:
 
     roofline = {}
     for n, names in ((3, ("gather_score",)), (4, ("traverse",)),
-                     (5, ("cut_rescore", "rescore_topk"))):
-        least_ms = 1e3 * sum(least_seconds(w) for w in works if w["kernel"] in names) / len(part)
+                     (5, ("cut_rescore", "rescore_topk")), (6, ("rank_select",))):
+        least_ms = 1e3 * sum(least_seconds(w) for w in works
+                             if w["kernel"] in names and w.get("route", "kernel") == "kernel"
+                             ) / len(part)
         dev_ms = found["kernel_ms"].get(n, 0.0)
         if least_ms and dev_ms:
             roofline[f"k{n}"] = {"share_pct": 100.0 * least_ms / dev_ms, "least_ms": least_ms,

@@ -1097,14 +1097,17 @@ def test_cuda_profiling_trace_names_kernel_1(tmp_path):
     assert "fused_select_kernel" in text and '"arroy.exact.select"' in text
 
 
-def test_cuda_counting_records_each_kernel():
+def test_cuda_counting_records_each_kernel(monkeypatch):
     """`utils.profiling.counting` around one request of each engine on the
-    card: one work record a launch of kernels 3, 4 and 5, each holding the
-    work its inputs set, and the answers of the request outside it."""
-    from arroy_tpu_torch.ops import rescore, traverse
+    card: one work record a launch of kernels 3, 4, 5 and 6, each holding the
+    work its inputs set, and the answers of the request outside it.  The
+    probe's stage 1 is forced onto kernel 6: the route rule sends a table
+    this small to the plain chain."""
+    from arroy_tpu_torch.ops import rank_select, rescore, traverse
     from arroy_tpu_torch.utils import profiling
 
     dev = require_cuda()
+    monkeypatch.setattr(rank_select, "uses_kernel", lambda *_a: True)
     x = np.random.default_rng(6).standard_normal((20_000, 64)).astype(np.float32)
     db = Database(None, device=dev)
     w = Writer(db, 0, 64, metric="cosine")
@@ -1118,15 +1121,15 @@ def test_cuda_counting_records_each_kernel():
         "traversal": (r.searcher(10, search_k=2000, engine="forest", traversal="xla",
                                   rescore="exact"), {"traverse", "rescore_topk"}),
         "probe": (r.searcher(10, search_k=2000, engine="forest", traversal="probe",
-                              probe_trees=4), {"gather_score", "rescore_topk"}),
+                              probe_trees=4), {"rank_select", "gather_score", "rescore_topk"}),
     }
     for name, (s, kernels) in engines.items():
         dq = s.prepare_queries(q)
         ids, d = s.device_fn(*dq)
-        n0 = {**gs.launches, **traverse.launches, **rescore.launches}
+        n0 = {**gs.launches, **traverse.launches, **rescore.launches, **rank_select.launches}
         with profiling.counting() as works:
             ids2, d2 = s.device_fn(*dq)
-        n1 = {**gs.launches, **traverse.launches, **rescore.launches}
+        n1 = {**gs.launches, **traverse.launches, **rescore.launches, **rank_select.launches}
         assert torch.equal(ids, ids2) and torch.equal(d, d2), name
         assert {x["kernel"] for x in works} == kernels, name
         launched = {k.rpartition("_")[0] if k.startswith("gather") else k: n1[k] - n0[k]
@@ -1139,6 +1142,10 @@ def test_cuda_counting_records_each_kernel():
                 assert rec["pops_max"] == int(s.device_fn.last_pops.max())
             elif rec["kernel"] == "gather_score":
                 assert 0 < rec["blocks"] <= min(rec["B"] * rec["C"], len(s.device_fn.tables.valid))
+            elif rec["kernel"] == "rank_select":
+                t = s.device_fn.tables
+                assert (rec["T"], rec["nb_max"], rec["L"], rec["d"], rec["route"]) == (
+                    t.n_trees, t.nb_max, s.device_fn.L, 64, "kernel")
             else:
                 assert 0 < rec["rows"] <= min(rec["valid"], len(x))
                 assert rec["valid"] <= rec["B"] * rec["c"]
@@ -1802,3 +1809,241 @@ def test_cuda_forest_rescore_splits_past_2_31():
             s["slot_to_id"], s["qv"][sl], s["qn"][sl], s["qe"][sl])
         tie_aware_equal(ids[sl].cpu().numpy(), d[sl].cpu().numpy(), rids.cpu().numpy(),
                         rd.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the probe's stage 1 (`ops.rank_select`)
+# ---------------------------------------------------------------------------
+
+#: the f32 reordering tolerance of a centroid score: 1e-5 of its magnitude
+#: (scale · Σ_d |q_d · c_d| + |caux|), as kernel 3's dots
+RANK_RTOL = 1e-5
+
+
+def _rank_inputs(dev, metric, b, T, nb_max, d, seed=0, valid_share=0.9):
+    """(qcent, cent, caux, valid, scale) as the probe hands them to stage
+    1: cosine unit centroids, euclidean ``2q·c − ‖c‖²``, the dot product
+    raw, a binary metric's query decoded to ±1 against mean-of-±1
+    centroids."""
+    from arroy_tpu_torch.ops.binary import unpack_bits
+
+    rng = np.random.default_rng(seed)
+    cent = rng.standard_normal((T * nb_max, d)).astype(np.float32)
+    caux = np.zeros(T * nb_max, np.float32)
+    scale = 2 if metric == "euclidean" else 1
+    if metric == "cosine":
+        cent /= np.linalg.norm(cent, axis=1, keepdims=True)
+    elif metric == "euclidean":
+        caux = np.einsum("nd,nd->n", cent, cent).astype(np.float32)
+    elif metric == "binary":
+        cent = np.sign(cent).astype(np.float32) * rng.random((T * nb_max, 1)).astype(np.float32)
+    valid = rng.random(T * nb_max) < valid_share
+    valid[::nb_max] = True
+    if metric == "binary":
+        words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, -(-d // 32))).astype(np.int32))
+        q = unpack_bits(words.to(dev), d).contiguous()
+    else:
+        q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    return (q, torch.from_numpy(cent).to(dev), torch.from_numpy(caux).to(dev),
+            torch.from_numpy(valid).to(dev), scale)
+
+
+def _check_rank(monkeypatch, q, cent, caux, valid, scale, L, nb_max):
+    """Kernel 6 once (forced through `rank_blocks`' route, whatever the
+    rule picks at the shape), against the plain chain: per (query, tree) L distinct
+    blocks of the tree; every block whose float64 score is above the L-th
+    by more than its tolerance is taken, every block taken is within its
+    tolerance of the L-th or above, in descending order up to the
+    tolerance; the plain chain's set differs only inside the tolerance.
+    Returns the kernel's [B, T, L] block indices within their tree."""
+    from arroy_tpu_torch.ops import rank_select as rs
+
+    b, T = q.shape[0], cent.shape[0] // nb_max
+    n0 = rs.launches["rank_select"]
+    with monkeypatch.context() as m:
+        m.setattr(rs, "uses_kernel", lambda *_a: True)
+        got = rs.rank_blocks(q, cent, caux, valid, scale, L, nb_max)
+    torch.cuda.synchronize()
+    assert rs.launches["rank_select"] == n0 + 1
+    want = rs.rank_blocks_reference(q, cent, caux, valid, scale, L, nb_max)
+    assert got.shape == want.shape == (b, T * L) and got.dtype == torch.int64
+    q64, c64 = q.double(), cent.double()
+    s64 = scale * (q64 @ c64.T) - caux.double()[None, :]
+    s64 = torch.where(valid[None, :], s64, -float("inf")).reshape(b, T, nb_max)
+    tol = (RANK_RTOL * (scale * (q64.abs() @ c64.abs().T) + caux.double().abs()[None, :])
+           ).reshape(b, T, nb_max)
+    base = (torch.arange(T, device=q.device) * nb_max)[None, :, None]
+    out = {}
+    for name, ids in (("kernel", got), ("plain", want)):
+        local = ids.reshape(b, T, L) - base
+        assert bool(((local >= 0) & (local < nb_max)).all()), f"{name}: an id of another tree"
+        taken = torch.zeros((b, T, nb_max), dtype=torch.bool, device=q.device)
+        taken.scatter_(2, local, True)
+        assert bool((taken.sum(2) == L).all()), f"{name}: a block twice"
+        theta = torch.topk(s64, L, dim=2).values[..., -1:]
+        sg, tg = s64.gather(2, local), tol.gather(2, local)
+        assert not bool(((s64 > theta + tol) & ~taken).any()), f"{name}: a clear winner left out"
+        assert bool((sg >= theta - tg).all()), f"{name}: a clear loser taken"
+        out[name] = local
+    sg, tg = s64.gather(2, out["kernel"]), tol.gather(2, out["kernel"])
+    assert bool((sg[..., :-1] >= sg[..., 1:] - tg[..., :-1] - tg[..., 1:]).all()), "order"
+    return out["kernel"]
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot-product", "binary"])
+@pytest.mark.parametrize("b", [1, 7, 256, 2048])
+@pytest.mark.parametrize("L", [1, 25, 128])
+@pytest.mark.parametrize("d", [100, 768])
+def test_cuda_rank_select_matches_plain(monkeypatch, metric, b, L, d):
+    """Three trees of 1,000 blocks (not a multiple of the 128-block tile),
+    10% of them invalid."""
+    dev = require_cuda()
+    _check_rank(monkeypatch, *_rank_inputs(dev, metric, b, 3, 1000, d, seed=b + L), L, 1000)
+
+
+@pytest.mark.parametrize("L", [25, 128])
+@pytest.mark.parametrize("b", [7, 256])
+def test_cuda_rank_select_fewer_valid_than_L(monkeypatch, b, L):
+    """Tree 0 has 10 valid blocks: all of them, then its invalid blocks
+    from the lowest; tree 1 is all valid but its first block."""
+    dev = require_cuda()
+    q, cent, caux, valid, scale = _rank_inputs(dev, "euclidean", b, 2, 900, 100, seed=3)
+    valid[:900] = False
+    valid[torch.arange(0, 900, 90, device=dev)] = True
+    valid[900:] = True
+    valid[900] = False
+    local = _check_rank(monkeypatch, q, cent, caux, valid, scale, L, 900)
+    head = torch.sort(local[:, 0, :10], dim=1).values
+    assert torch.equal(head, torch.arange(0, 900, 90, device=dev)[None, :].expand(b, 10))
+    rest = [j for j in range(900) if j % 90][: L - 10]
+    assert torch.equal(local[:, 0, 10:], torch.tensor(rest, device=dev)[None, :].expand(b, -1))
+
+
+@pytest.mark.parametrize("L", [1, 25, 128])
+@pytest.mark.parametrize("b", [1, 256])
+def test_cuda_rank_select_exact_ties(monkeypatch, b, L):
+    """Centroids that repeat 5 distinct rows: equal scores, exactly, in
+    any summation order; the kernel takes them by descending score, equal
+    scores by the lower block, on every tile and column range."""
+    dev = require_cuda()
+    q, _, _, valid, scale = _rank_inputs(dev, "dot-product", b, 2, 700, 100, seed=5)
+    rows = torch.from_numpy(np.random.default_rng(6).standard_normal((5, 100)).astype(np.float32))
+    pick = torch.tensor([(j * 7919) % 5 for j in range(1400)])
+    cent = rows[pick].to(dev).contiguous()
+    caux = torch.zeros(1400, device=dev)
+    valid[:] = True
+    local = _check_rank(monkeypatch, q, cent, caux, valid, scale, L, 700)
+    s = (q.double() @ rows.to(dev).double().T)  # [B, 5]
+    for t in range(2):
+        group = pick[t * 700:(t + 1) * 700].to(dev)
+        key = s[:, group]  # [B, 700]
+        order = torch.sort(-key, dim=1, stable=True).indices[:, :L]
+        assert torch.equal(local[:, t], order), t
+
+
+@pytest.mark.parametrize("b,T,nb_max,sms,per_sm,want", [
+    (2048, 8, 23_100, 132, 1, 1),   # the probe cell: 128 CTAs on 132 SMs
+    (2048, 8, 23_100, 132, 2, 2),   # two CTAs an SM: 256 of 264 slots
+    (256, 8, 23_100, 132, 1, 8),    # 16 (query tile, tree) pairs, 8 ranges each
+    (256, 4, 8_192, 132, 1, 16),    # 64 tiles: 16 ranges of 4 (15 would leave 2 empty)
+    (7, 8, 23_100, 132, 1, 16),     # 181 tiles: 15 ranges of 13 would be 14
+    (1, 1, 23_100, 132, 1, 31),     # the most ranges none of which is empty
+    (1, 1, 300, 132, 1, 3),         # no more ranges than the tree has tiles
+    (4096, 10, 5_000, 132, 1, 2),   # 320 CTAs fill their 3 waves 0.81; 640 fill 5 0.97
+])
+def test_cuda_rank_select_plan_fills_the_card(b, T, nb_max, sms, per_sm, want):
+    """Kernel 6's column ranges (`rank_select_plan` in the library): the
+    fewest, none of them empty, whose CTAs fill 90% of their last wave."""
+    import ctypes
+
+    from arroy_tpu_torch.ops import rank_select as rs
+
+    require_cuda()
+    lib = rs._lib()
+    lib.rank_select_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    got = ctypes.c_int(0)
+    assert lib.rank_select_plan(b, T, nb_max, sms, per_sm, ctypes.byref(got)) == 0
+    assert got.value == want
+
+
+def _probe_cell_index(dev, m=100_000, d=32, seed=11):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    db = Database(None, device=dev)
+    w = Writer(db, 0, d, metric="cosine")
+    with db.write() as wtxn:
+        w.add_items(wtxn, np.arange(m), x)
+        w.builder(seed=seed).n_trees(8).build(wtxn)
+    return Reader.open(db.read(), 0, db, metric="cosine"), x
+
+
+def _searcher_at_L(r, L, **kw):
+    """A probe searcher over 8 trees of 64-slot blocks whose L (blocks a
+    tree) is `L`: search_k = L · T · P · fill."""
+    kw = dict(engine="forest", traversal="probe", probe_trees=8, probe_block=64, **kw)
+    fill = r.searcher(10, search_k=1000, **kw).device_fn.tables.fill
+    s = r.searcher(10, search_k=L * int(8 * 64 * fill), **kw)
+    assert s.route == "probe" and s.device_fn.L == L
+    return s
+
+
+def test_cuda_probe_launches_kernel6_once_a_batch(monkeypatch):
+    """The probe at the cell's geometry (T = 8, P = 64, L = 25) over
+    tables the route rule sends to the kernel from `min_queries` queries:
+    one launch of kernel 6 a batch, no plain call, the answers tie-aware
+    equal to the plain chain's on the card; L past `MAX_L`, or one query
+    fewer, take the plain chain, once a batch, counted."""
+    from arroy_tpu_torch.ops import rank_select as rs
+
+    dev = require_cuda()
+    r, x = _probe_cell_index(dev)
+    s = _searcher_at_L(r, 25)
+    least = rs.min_queries(s.device_fn.tables.cent.shape[0], 32, 25)
+    assert least is not None
+    q = x[:least] + 0.05 * np.random.default_rng(2).standard_normal((least, 32)).astype(np.float32)
+    dq = s.prepare_queries(q)
+    n0, p0 = rs.launches["rank_select"], rs.plain_calls["rank_blocks"]
+    got = [_result_arrays(s.device_fn(*dq)) for _ in range(3)]
+    assert rs.launches["rank_select"] == n0 + 3 and rs.plain_calls["rank_blocks"] == p0
+    with monkeypatch.context() as m:
+        m.setattr(rs, "MAX_L", 0)
+        want = _result_arrays(s.device_fn(*dq))
+    assert rs.launches["rank_select"] == n0 + 3 and rs.plain_calls["rank_blocks"] == p0 + 1
+    for g in got:
+        tie_aware_equal(*g, *want, rtol=1e-5, atol=1e-6)
+    big = _searcher_at_L(r, rs.MAX_L + 8)
+    n0, p0 = rs.launches["rank_select"], rs.plain_calls["rank_blocks"]
+    big.device_fn(*big.prepare_queries(q))
+    big.device_fn(*big.prepare_queries(q))
+    s.device_fn(*s.prepare_queries(q[: least - 1]))
+    assert rs.launches["rank_select"] == n0 and rs.plain_calls["rank_blocks"] == p0 + 3
+    s.device_fn(*s.prepare_queries(q))
+    assert rs.launches["rank_select"] == n0 + 1
+
+
+def test_cuda_sharded_probe_launches_kernel6_a_shard(monkeypatch):
+    """4 shards on the card, stage 1 on kernel 6 (forced: the shards'
+    tables are smaller than the route rule's): the sharded probe launches
+    it once a shard a call and answers as with the plain chain."""
+    from arroy_tpu_torch.ops import rank_select as rs
+    from arroy_tpu_torch.parallel.forest import ShardedForestIndex
+    from arroy_tpu_torch.parallel.mesh import make_mesh
+
+    require_cuda()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((12_000, 48)).astype(np.float32)
+    q = x[:48] + 0.3 * rng.standard_normal((48, 48)).astype(np.float32)
+    idx = ShardedForestIndex.build(make_mesh(4), x, n_trees=3, seed=2)
+
+    def call():
+        return idx.probe_search(q, 10, search_k=2000, n_trees=3, block=16)
+
+    call()  # the probe packs its tables
+    n0, p0 = rs.launches["rank_select"], rs.plain_calls["rank_blocks"]
+    with monkeypatch.context() as m:
+        m.setattr(rs, "uses_kernel", lambda *_a: True)
+        got = call()
+    assert rs.launches["rank_select"] == n0 + 4 and rs.plain_calls["rank_blocks"] == p0
+    want = call()
+    assert rs.launches["rank_select"] == n0 + 4 and rs.plain_calls["rank_blocks"] == p0 + 4
+    tie_aware_equal(*got, *want, rtol=1e-5, atol=1e-6)

@@ -45,8 +45,8 @@ NESTING = {
     "filtered": {**ENTRY, **TRAVERSAL},
 }
 #: the kernel wrappers each engine calls, in its work records
-KERNELS = {"exact": {"cut_rescore"}, "traversal": {"traverse"}, "probe": {"gather_score"},
-           "filtered": {"traverse"}}
+KERNELS = {"exact": {"cut_rescore"}, "traversal": {"traverse"},
+           "probe": {"rank_select", "gather_score"}, "filtered": {"traverse"}}
 
 
 def _vectors():
