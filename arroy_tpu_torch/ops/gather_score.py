@@ -5,19 +5,24 @@ and each of its ``C`` selected block ids::
 
     out[b, c, p] = Σ_d f32(blk_rows[bid[b, c], p, d]) · qv[b, d]
 
-with f32 accumulation.  `gather_score` dispatches on where its tensors
-live: on a CUDA device it launches the hand-written kernel
+with f32 accumulation, and writes the probe's in-block score of that dot
+(an `Epilogue`, whose plain chain is `apply_epilogue`: the int8 scale, the
+metric's op and ``-inf`` where no live, matching slot is), so the probe
+writes nothing but the [B, C, P] scores; the "dot" op with every slot
+live writes the dots themselves.  `gather_score` dispatches on where its
+tensors live: on a CUDA device it launches the hand-written kernel
 (`csrc/gather_score.cu`: for a call that gathers `SCHEDULE_MIN_BYTES` or
-more, a counting sort of the pairs by block id, then the scoring, which
-reads each distinct block once) or raises; on the CPU it runs
-`gather_score_reference`, the plain PyTorch version (gather + einsum,
-chunked over C).  Rows may be bf16, f32 or int8; int8 dequantization
-happens outside, as the caller multiplies by the per-item scale.
+more, a counting sort of the pairs by block id on the whole card, then
+the scoring, which reads each distinct block once and writes the score)
+or raises; on the CPU it runs `gather_score_reference`, the plain
+PyTorch version (gather + einsum, chunked over C, then the epilogue's
+chain of elementwise ops).  Rows may be bf16, f32 or int8.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -31,12 +36,22 @@ launches = {"gather_score_bf16": 0, "gather_score_int8": 0, "gather_score_f32": 
 _REF_CHUNK_BYTES = 256 << 20
 #: scheduled pairs one CTA of the kernel takes (`kSlice` in the source)
 SLICE = 32
+#: block counts one CTA of the schedule's scan takes (`kScanTile`)
+SCAN_TILE = 4096
+#: epilogue op -> the kernel's op code
+OPS = {"dot": 0, "cosine": 1, "euclidean": 2}
+#: the cosine denominator's floor
+EPS = 1e-30
 #: least rows a call gathers (B*C*P*d*itemsize bytes) for which the kernel
-#: sorts the pairs by block first.  The sort costs ~0.012 ms a call on an
-#: NVIDIA H100 80GB HBM3 at 700 W (`scripts/torch_gather_tune.py`, PERF.md):
-#: it paid on the probe slice's 352 MB bf16 and 503 MB f32 chunks and lost
-#: on its 264 MB int8 chunks; below, the pairs are scored in query order.
-SCHEDULE_MIN_BYTES = 300 << 20
+#: sorts the pairs by block first; below, the pairs are scored in query
+#: order.  The schedule costs 0.013 ms a call at 35k blocks, 0.030 ms at
+#: 409,600 pairs over 236k.  On an NVIDIA H100 80GB HBM3 at 700 W
+#: (`scripts/torch_gather_tune.py --crossover`, PERF.md), over the first B
+#: = 1 .. 2048 queries of the probe slice's selections (bf16, int8, f32
+#: rows, d 768) and the probe cell's (bf16, d 100): sorting lost in every
+#: call of 312.5 MiB or less (by 2-33%) and won in every call of 432 MiB or
+#: more (by 1.5-33%).
+SCHEDULE_MIN_BYTES = 384 << 20
 #: row dtype -> (the kernel's row_type code, launch counter name)
 _ROW_TYPES = {
     torch.float32: (0, "gather_score_f32"),
@@ -45,16 +60,67 @@ _ROW_TYPES = {
 }
 
 
-def gather_score_reference(blk_rows: torch.Tensor, bid: torch.Tensor, qv: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: [NBT, P, d] rows, [B, C] ids, [B, d] f32 -> [B, C, P] f32."""
+@dataclass(frozen=True)
+class Epilogue:
+    """What the kernel writes in place of a row's dot: the probe's
+    in-block score (`apply_epilogue`).
+
+    op:    "dot", "cosine" or "euclidean" (the ranking form ``2·d − aux``,
+           manhattan's too)
+    aux:   [NBT, P] f32 per-slot term (‖x‖ for cosine, ‖x‖² for euclidean)
+    slots: [NBT, P] int32 slots, -1 pad
+    scale: [NBT, P] f32 int8 dequant scale, or None
+    fmask: [cap] bool candidate mask over the slots, or None
+    """
+
+    op: str
+    aux: torch.Tensor
+    slots: torch.Tensor
+    scale: torch.Tensor | None = None
+    fmask: torch.Tensor | None = None
+
+
+def apply_epilogue(d2: torch.Tensor, bid: torch.Tensor, ep: Epilogue) -> torch.Tensor:
+    """The plain chain of the epilogue on the [B, C, P] dots of [B, C] ids
+    (-1 pad): ``d2 · scale``, then the metric's op, each an f32 op of its
+    own, and ``-inf`` where the id is -1, the slot is -1 or `fmask`
+    excludes it."""
+    safe = torch.clamp(bid, min=0).long()
+    if ep.scale is not None:
+        d2 = d2 * ep.scale[safe]  # dequant AFTER the dot
+    if ep.op == "euclidean":
+        s2 = 2.0 * d2 - ep.aux[safe]
+    elif ep.op == "cosine":
+        s2 = d2 / torch.clamp(ep.aux[safe], min=EPS)
+    else:
+        s2 = d2
+    slot = torch.where((bid >= 0)[..., None], ep.slots[safe], -1)
+    keep = slot >= 0
+    if ep.fmask is not None:
+        keep = keep & ep.fmask[torch.clamp(slot, min=0)]
+    return torch.where(keep, s2, -float("inf"))
+
+
+def gather_score_reference(blk_rows: torch.Tensor, bid: torch.Tensor, qv: torch.Tensor,
+                           epilogue: Epilogue) -> torch.Tensor:
+    """Plain PyTorch version: [NBT, P, d] rows, [B, C] ids (-1 pad),
+    [B, d] f32 -> the [B, C, P] f32 scores of `epilogue`."""
     b, c = bid.shape
     _, p, d = blk_rows.shape
+    ids = torch.clamp(bid, min=0)
     step = max(_REF_CHUNK_BYTES // max(b * p * d * 4, 1), 1)
     out = torch.empty((b, c, p), dtype=torch.float32, device=qv.device)
     for s in range(0, c, step):
-        rows = blk_rows[bid[:, s : s + step].long()].float()
+        rows = blk_rows[ids[:, s : s + step].long()].float()
         out[:, s : s + step] = torch.einsum("bcpd,bd->bcp", rows, qv)
-    return out
+    return apply_epilogue(out, bid, epilogue)
+
+
+def schedule_words(n: int, nbt: int) -> int:
+    """int32 words of the kernel's schedule scratch for n pairs over nbt
+    blocks: keys and pairs, the block counts (nbt + 1) and one sum a tile
+    of `SCAN_TILE` counts."""
+    return 2 * n + nbt + 1 + -(-(nbt + 1) // SCAN_TILE)
 
 
 def block_schedule(bid: torch.Tensor, nbt: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,13 +128,14 @@ def block_schedule(bid: torch.Tensor, nbt: int) -> tuple[torch.Tensor, torch.Ten
     the flat pair index b*C + c it came from, both int32, so the pairs that
     share a block are neighbours.  On the card this is the kernel's own
     schedule (a counting sort; the order of the pairs within a block may
-    differ from run to run), on the CPU `torch.sort`."""
+    differ from run to run; ids outside [0, nbt) go last), on the CPU
+    `torch.sort`."""
     flat = bid.reshape(-1)
     if flat.device.type == "cpu":
         keys, pairs = torch.sort(flat)
         return keys, pairs.to(torch.int32)
     n = flat.numel()
-    scratch = torch.empty(2 * n + nbt + 1, dtype=torch.int32, device=flat.device)
+    scratch = torch.empty(schedule_words(n, nbt), dtype=torch.int32, device=flat.device)
     if n:
         with torch.cuda.device(flat.device):
             rc = _lib().gather_schedule(flat.data_ptr(), n, nbt, scratch.data_ptr(),
@@ -92,6 +159,7 @@ def _lib():
     lib.gather_score.restype = ctypes.c_int
     lib.gather_score.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] + [ctypes.c_void_p] * 4
     )
     lib.gather_schedule.restype = ctypes.c_int
     lib.gather_schedule.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
@@ -111,30 +179,59 @@ def _vec_bytes(blk_rows: torch.Tensor) -> int:
     return min(fits, key=lambda vb: (-(-row_bytes // (32 * vb)) * vb, -vb))
 
 
-def work(blk_rows: torch.Tensor, bid: torch.Tensor) -> dict:
+def work(blk_rows: torch.Tensor, bid: torch.Tensor, epilogue: Epilogue, chunks: int = 1) -> dict:
     """The work record of one call (`utils.profiling.counting`): B, C, P,
-    d, the rows' type and element bytes, and ``blocks``, the distinct block
-    ids in `bid`: the blocks a call must read."""
+    d, the rows' type and element bytes, ``blocks``, the distinct block ids
+    in [0, NBT) of `bid` (the blocks a call must read), ``chunks``, the
+    calls its request's stage 2 was cut into, and ``epilogue``: the metric
+    op, whether an int8 scale and a filter apply."""
     b, c = bid.shape
-    _, p, d = blk_rows.shape
+    nbt, p, d = blk_rows.shape
+    ep = {"op": epilogue.op, "scale": epilogue.scale is not None,
+          "filtered": epilogue.fmask is not None}
     return {"kernel": "gather_score", "B": b, "C": c, "P": p, "d": d,
             "dtype": str(blk_rows.dtype).removeprefix("torch."),
-            "elem_bytes": blk_rows.element_size(), "blocks": int(torch.unique(bid).numel())}
+            "elem_bytes": blk_rows.element_size(),
+            "blocks": int(torch.unique(bid[(bid >= 0) & (bid < nbt)]).numel()),
+            "chunks": chunks, "epilogue": ep}
 
 
-def gather_score(blk_rows: torch.Tensor, bid: torch.Tensor, qv: torch.Tensor) -> torch.Tensor:
+def _epilogue_args(ep: Epilogue, nbt: int, p: int, device) -> tuple:
+    """The kernel's op code and epilogue pointers, after checking each
+    tensor's type, shape (fmask: 1-D) and device."""
+    if ep.op not in OPS:
+        raise ValueError(f"gather_score: unknown epilogue op {ep.op!r}")
+    ptrs = []
+    for name, dtype, dims in (("aux", torch.float32, (nbt, p)), ("slots", torch.int32, (nbt, p)),
+                              ("scale", torch.float32, (nbt, p)), ("fmask", torch.bool, None)):
+        t = getattr(ep, name)
+        if t is None and name in ("aux", "slots"):
+            raise ValueError(f"gather_score: the epilogue needs {name}")
+        if t is not None and (t.dtype != dtype or (tuple(t.shape) != dims if dims else t.dim() != 1)
+                              or t.device != device or not t.is_contiguous()):
+            raise ValueError(f"gather_score: epilogue {name} must be contiguous {dtype} "
+                             f"{list(dims or ['cap'])} on {device}, got {t.dtype} "
+                             f"{list(t.shape)} on {t.device}")
+        ptrs.append(None if t is None else t.data_ptr())
+    return (OPS[ep.op], *ptrs)
+
+
+def gather_score(blk_rows: torch.Tensor, bid: torch.Tensor, qv: torch.Tensor,
+                 epilogue: Epilogue, *, chunks: int = 1) -> torch.Tensor:
     """Score per-query selected blocks against the queries.
 
     blk_rows: [NBT, P, d] bf16 / f32 / int8 block tables
-    bid:      [B, C] int32 block ids, already clamped to [0, NBT)
+    bid:      [B, C] int32 block ids in [0, NBT), -1 pad
     qv:       [B, d] f32 queries
-    returns:  [B, C, P] f32 raw dots ``q_b · row`` (no aux terms)
+    epilogue: the scores to write (`Epilogue`)
+    chunks:   the calls the request's stage 2 was cut into (work record only)
+    returns:  [B, C, P] f32 scores of the dots ``q_b · row``
     """
     sink = profiling.work_sink()
     if sink is not None:
-        sink.append(work(blk_rows, bid))
+        sink.append(work(blk_rows, bid, epilogue, chunks))
     if blk_rows.device.type == "cpu":
-        return gather_score_reference(blk_rows, bid, qv)
+        return gather_score_reference(blk_rows, bid, qv, epilogue)
     if blk_rows.device.type != "cuda":
         raise ValueError(f"gather_score: unsupported device {blk_rows.device}")
     if blk_rows.dtype not in _ROW_TYPES:
@@ -153,20 +250,25 @@ def gather_score(blk_rows: torch.Tensor, bid: torch.Tensor, qv: torch.Tensor) ->
     tensors = (blk_rows, bid, qv)
     if any(t.device != blk_rows.device or not t.is_contiguous() for t in tensors):
         raise ValueError("gather_score: tensors must be contiguous on one device")
-    if b * c * p == 0 or d == 0:
+    ep_args = _epilogue_args(epilogue, nbt, p, blk_rows.device)
+    if b * c * p == 0:
         return torch.zeros((b, c, p), dtype=torch.float32, device=blk_rows.device)
+    if d == 0:  # every dot is 0
+        return apply_epilogue(torch.zeros((b, c, p), dtype=torch.float32, device=blk_rows.device),
+                              bid, epilogue)
     if qv.data_ptr() % 16:  # the kernel reads the query in 16-byte vectors
         qv = qv.clone()
     out = torch.empty((b, c, p), dtype=torch.float32, device=blk_rows.device)
     row_type, name = _ROW_TYPES[blk_rows.dtype]
     scratch = None
     if b * c * p * d * blk_rows.element_size() >= SCHEDULE_MIN_BYTES:
-        scratch = torch.empty(2 * b * c + nbt + 1, dtype=torch.int32, device=blk_rows.device)
+        scratch = torch.empty(schedule_words(b * c, nbt), dtype=torch.int32,
+                              device=blk_rows.device)
     with torch.cuda.device(blk_rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gather_score(row_type, _vec_bytes(blk_rows), blk_rows.data_ptr(),
                                  bid.data_ptr(), qv.data_ptr(), out.data_ptr(), b, c, p, d, nbt,
-                                 stream, None if scratch is None else scratch.data_ptr())
+                                 stream, None if scratch is None else scratch.data_ptr(), *ep_args)
     _build.check(rc, name)
     launches[name] += 1
     return out

@@ -15,10 +15,13 @@ deviation from the reference's best-first traversal, PARITY.md):
    the [B, T·nb_max] scores (kernel 6, `ops/rank_select`), else one
    centroid matmul and `torch.topk`.
 3. The selected blocks are scored by the gather-score kernel
-   (`ops/gather_score`), which streams each block once and never
-   materializes the gathered rows; a top-k2 cut, a slot-dedup and an
-   exact f32 re-score produce the final top-k (kernel 5's `rescore_topk`
-   on the card for euclidean, cosine and dot-product).
+   (`ops/gather_score`), which streams each block once, never
+   materializes the gathered rows and writes the in-block score itself
+   (its epilogue: the int8 scale, the metric's op, the pad and filter
+   mask), in one launch for the whole selection where its temporaries
+   fit; a top-k2 cut, a slot-dedup and an exact f32 re-score produce the
+   final top-k (kernel 5's `rescore_topk` on the card for euclidean,
+   cosine and dot-product).
 
 The block tables are packed on the host with numpy, bit-identical to the
 JAX package's `build_tables_np` (bf16 rows are rounded by PyTorch, which
@@ -46,13 +49,12 @@ from .ops.binary import (
     unpack_bits,
     unpack_bits_np,
 )
-from .ops.gather_score import gather_score
+from .ops.gather_score import Epilogue, gather_score, schedule_words
 from .ops.rank_select import rank_blocks
 from .ops.rescore import forest_kernel, forest_rescore
 from .utils import profiling
 
 _INF = float("inf")
-_EPS = 1e-30
 
 #: default probe geometry (overridable per Searcher / env): "auto" takes
 #: as many trees as the block-table memory budget allows, up to 8
@@ -63,10 +65,10 @@ DEFAULT_BLOCK = int(os.environ.get("ARROY_PROBE_BLOCK", 64))
 PROBE_BYTES = int(os.environ.get("ARROY_PROBE_BYTES", 4 << 30))
 #: budget for the query-time gather temporaries: past it the probe scores
 #: blocks (and re-scores candidates) in chunks with per-chunk winners and
-#: one final merge.  The chunk rule is the JAX package's, so both take the
-#: same chunks; on the card each block chunk is one kernel launch, whose
-#: temporary is only [B, ch, P] f32.
+#: one final merge (`gather_chunk`).
 PROBE_GATHER_BYTES = int(os.environ.get("ARROY_PROBE_GATHER_BYTES", 1 << 30))
+#: stage-2 calls on the card whose selection still split into chunks
+chunked_calls = 0
 
 
 def _per_tree_bytes(idx, dtype: str) -> int:
@@ -370,19 +372,51 @@ def _rank_blocks(metric, L, nb_max, scale, cent, caux, valid, qv) -> torch.Tenso
     return rank_blocks(qcent.contiguous(), cent, caux, valid, scale, L, nb_max)
 
 
-def gather_chunk(b: int, blk_rows: torch.Tensor) -> int:
-    """Blocks per query that stage 2 scores in one chunk: `PROBE_GATHER_BYTES`
-    over the bytes a [b, 1, P, d] slab of the JAX package's gathered rows
-    and temporaries takes (the JAX package's rule, kept so both take the
-    same chunks)."""
-    d = blk_rows.shape[-1]
+def stage2_kernel(blk_rows: torch.Tensor) -> bool:
+    """Whether stage 2 runs on kernel 3 with its epilogue: rows on a CUDA
+    device, of a type it takes (bf16, f32, int8; not packed sign bits)."""
+    return blk_rows.device.type == "cuda" and blk_rows.dtype in (
+        torch.bfloat16, torch.float32, torch.int8)
+
+
+def gather_chunk(b: int, blk_rows: torch.Tensor, kernel: bool) -> int:
+    """Blocks per query that stage 2 scores in one chunk, within
+    `PROBE_GATHER_BYTES`.  On kernel 3 (``kernel``, `stage2_kernel`): what
+    it allocates, the [b, c, P] f32 scores and the schedule's int32 scratch
+    (keys and pairs, 8 bytes a pair, beside its per-block counts).  Else
+    the JAX package's rule, the bytes a [b, 1, P, d] slab of its gathered
+    rows and temporaries takes, so the CPU and the sign-bit rows take the
+    JAX package's chunks."""
+    nbt, p, d = blk_rows.shape
+    if kernel:
+        free = int(PROBE_GATHER_BYTES) - 4 * schedule_words(0, nbt)
+        return max(1, free // max(b * (4 * p + 8), 1))
     if blk_rows.dtype == torch.int32:  # packed sign-bit words
         per_slot = d * 8
     elif blk_rows.dtype == torch.int8:
         per_slot = d * 4
     else:
         per_slot = d * (6 if blk_rows.dtype == torch.bfloat16 else 8)
-    return max(1, int(PROBE_GATHER_BYTES) // max(b * blk_rows.shape[1] * per_slot, 1))
+    return max(1, int(PROBE_GATHER_BYTES) // max(b * p * per_slot, 1))
+
+
+def score_op(name: str) -> str:
+    """The in-block score's op for a metric (`ops.gather_score.Epilogue`):
+    the euclidean family ranks by ``2·q·x − ‖x‖²``, cosine by
+    ``q·x / ‖x‖``, every other metric (dot-product, a registered one) by
+    the dot."""
+    return {"euclidean": "euclidean", "manhattan": "euclidean", "cosine": "cosine"}.get(name, "dot")
+
+
+def winner_slots(v: torch.Tensor, i: torch.Tensor, bid: torch.Tensor,
+                 blk_slots: torch.Tensor) -> torch.Tensor:
+    """The slots of stage 2's winners: ``i`` [B, w] flat indices into the
+    [B, c·P] scores of block ids ``bid`` [B, c] (-1 pad), read from the
+    table at the winners' blocks; -1 where the score ``v`` is -inf (a pad,
+    a dead or a filtered slot)."""
+    P = blk_slots.shape[1]
+    blk = torch.clamp(torch.gather(bid, 1, i // P), min=0)
+    return torch.where(v == -_INF, -1, blk_slots[blk, i % P])
 
 
 #: when set, `rescore_cut` returns the JAX package's cut (the tests hold
@@ -454,6 +488,7 @@ def _probe_core(
     in-block scores (the roaring-∩ role, reference: src/reader.rs:354-360).
     With ``normalize=False`` the distances stay raw, +inf where nothing
     was found (what the sharded probe merges)."""
+    global chunked_calls
     name = metric.name
     b = qv.shape[0]
     T = cent.shape[0] // nb_max
@@ -476,22 +511,27 @@ def _probe_core(
         # exact in f32), so only the summation order differs
         qk = qv if blk_rows.dtype == torch.float32 else qv.to(torch.bfloat16).float()
         qk = qk.contiguous()
+        epilogue = Epilogue(score_op(name), blk_aux, blk_slots,
+                            blk_scale if blk_rows.dtype == torch.int8 else None, fmask)
 
     @profiling.spanned("arroy.probe.score")
-    def score_blocks(bidc):
-        """Score one [B, c] slab of selected block ids (-1 pad)."""
+    def score_blocks(bidc, nch):
+        """The in-block scores of one [B, c] slab of selected block ids (-1
+        pad): [B, c, P] f32, -inf where no live (and matching) slot is."""
+        if not packed:  # kernel 3 and its epilogue (its plain chain on the CPU)
+            return gather_score(blk_rows, bidc.to(torch.int32).contiguous(), qk, epilogue,
+                                chunks=nch)
         safe = torch.clamp(bidc, min=0)
         baux = blk_aux[safe]  # [B, c, P]
         bslot = torch.where((bidc >= 0)[..., None], blk_slots[safe], -1)
-        if packed:
-            ham = popcount32(
-                torch.bitwise_xor(blk_rows[safe], qbits[:, None, None, :])
-            ).sum(dim=-1, dtype=torch.int32)
+        ham = popcount32(
+            torch.bitwise_xor(blk_rows[safe], qbits[:, None, None, :])
+        ).sum(dim=-1, dtype=torch.int32)
         if metric.binary:
             # XOR popcount IS the distance basis: all three BQ distances
             # are affine in the hamming count, so ranking by -ham is exact
             s2 = -ham.to(torch.float32)
-        elif packed:
+        else:
             # estimate the dot from sign agreement scaled by the stored
             # norms: q·x ≈ ‖q‖‖x‖·bqdot/d_pad; the exact f32 re-score of
             # the (widened) top-k2 fixes the ranking
@@ -504,42 +544,41 @@ def _probe_core(
                 s2 = bqdot  # sign-cosine proxy; norms cancel
             else:
                 s2 = baux * bqdot  # raw dot up to the ‖q‖/d_pad const
-        else:
-            d2 = gather_score(blk_rows, safe.to(torch.int32).contiguous(), qk)
-            if blk_rows.dtype == torch.int8:
-                d2 = d2 * blk_scale[safe]  # dequant AFTER the dot
-            if name in ("euclidean", "manhattan"):
-                s2 = 2.0 * d2 - baux
-            elif name == "cosine":
-                s2 = d2 / torch.clamp(baux, min=_EPS)
-            else:
-                s2 = d2
         keep = bslot >= 0
         if fmask is not None:
             keep = keep & fmask[torch.clamp(bslot, min=0)]
-        return torch.where(keep, s2, -_INF), torch.where(keep, bslot, -1)
+        return torch.where(keep, s2, -_INF)
 
     @profiling.spanned("arroy.probe.cut")
-    def cut(s2, bslot, width):
-        """Top-`width` block scores of a [B, c, P] slab, with their slots."""
+    def cut(s2, bidc, width):
+        """Top-`width` scores of a [B, c, P] slab of block ids `bidc`, with
+        their slots (read from the table at the winners' blocks; -1 where
+        the score is -inf: a pad, a dead or a filtered slot)."""
         s2f = s2.reshape(b, -1)
-        slotf = bslot.reshape(b, -1)
         if width < s2f.shape[1]:
             v, i = torch.topk(s2f, width, dim=1)
-            return v, torch.gather(slotf, 1, i)
-        return s2f, slotf
+        else:
+            v, i = s2f, torch.arange(s2f.shape[1], device=s2f.device).expand(b, -1)
+        return v, winner_slots(v, i, bidc, blk_slots)
 
-    # score in chunks of `ch` blocks with per-chunk winners and one final
-    # merge (the JAX package's rule, kept so both take the same chunks)
+    # score in one call where the temporaries fit `PROBE_GATHER_BYTES`,
+    # else in chunks of `ch` blocks with per-chunk winners and one final
+    # merge (on the CPU and for sign-bit rows the JAX package's chunks)
     C = T * L
-    ch = gather_chunk(b, blk_rows)
+    kernel = stage2_kernel(blk_rows)
+    ch = gather_chunk(b, blk_rows, kernel)
     if C <= ch:
-        sel_s, cand = cut(*score_blocks(bid), k2)
+        sel_s, cand = cut(score_blocks(bid, 1), bid, k2)
     else:
+        if kernel:
+            chunked_calls += 1
         nch = -(-C // ch)
         bid_p = torch.nn.functional.pad(bid, (0, nch * ch - C), value=-1)
         k2c = min(k2, ch * P)
-        parts = [cut(*score_blocks(bid_p[:, i * ch : (i + 1) * ch]), k2c) for i in range(nch)]
+        parts = []
+        for i in range(nch):
+            bidc = bid_p[:, i * ch : (i + 1) * ch]
+            parts.append(cut(score_blocks(bidc, nch), bidc, k2c))
         with profiling.span("arroy.probe.cut"):
             allv = torch.cat([v for v, _ in parts], dim=1)
             alls = torch.cat([s for _, s in parts], dim=1)

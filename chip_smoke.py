@@ -19,6 +19,15 @@ exits non-zero:
    both are timed with CUDA events beside the card's bound for the same
    work and, where one exists, a PyTorch library call computing it
    (kernels 1 and 2 also beside cuBLAS's bare GEMM at the same shape).
+   Kernel 3's epilogue (the probe's scores: each op, int8 scales, -1 ids
+   and slots, a filter) is held bit-equal to the plain chain on its own
+   dots and within the dots' tolerance of the plain version at each edge
+   shape; then, on tables of the probe cell's shape (B 2048, 8 trees of
+   29,568 blocks, L 25, d 100, bf16), the block schedule is held to
+   `torch.sort` and the scores to the plain version, and `[stage2]` lines
+   time the schedule alone, the kernel, the one-pass stage 2 against the
+   parent's 16-chunk chain, and the blocks the kernel reads in one
+   schedule against 16.
    Kernel 4 (the pop loop) is checked on phase 4's index and margins,
    once it exists (at the start of phase 7): bit-equal at each search_k
    of phase 7, both tiers' budgets, filtered, a q_cap past its shared-
@@ -62,11 +71,11 @@ exits non-zero:
    3), tie-aware equal on batch 0 to the plain stage-3 chain fed the same
    stage-2 candidates; stage 1 once a batch on the route
    `ops.rank_select.uses_kernel` picks (kernel 6, or the plain chain
-   counted) for each served searcher at B = 256 and 2048; then kernel 3
-   timed on a real selection of
-   blocks, with the share of distinct blocks in the whole selection and
-   in the probe's chunks of it, and its rates on total, distinct and read
-   bytes;
+   counted) for each served searcher at B = 256 and 2048; stage 2 in one
+   call a batch (`probe.chunked_calls` 0); then kernel 3 timed on a real
+   selection of blocks, with the share of distinct blocks in the whole
+   selection and in the JAX package's chunks of it, and its rates on
+   total, distinct and read bytes;
 7. traversal slice (run inside phase 4, on its reopened index) — the
    best-first forest traversal, which ``searcher(engine="forest")``
    resolves to under 262,144 items: batches of 256 of phase 4's queries,
@@ -398,21 +407,191 @@ def tensor_core_ops(so_path):
     return counts
 
 
-def check_gather(gs, rows, bid, q):
-    """Kernel vs plain version on the same operands: |Δ| <= 1e-5 · Σ_d |row·q|
-    (only the summation order differs).  Returns max |Δ|."""
+def dots_epilogue(gs, rows):
+    """Kernel 3's epilogue whose scores are the dots themselves: the "dot"
+    op, every slot live, no scale, no filter."""
     import torch
 
-    got = gs.gather_score(rows, bid, q)
-    want = gs.gather_score_reference(rows, bid, q)
-    mag = torch.zeros_like(want)
+    nbt, p, _ = rows.shape
+    return gs.Epilogue("dot", torch.zeros((nbt, p), device=rows.device),
+                       torch.arange(nbt * p, dtype=torch.int32, device=rows.device).view(nbt, p))
+
+
+def check_gather(gs, rows, bid, q, ep=None):
+    """Kernel vs plain version (`gather_score_reference`) on the same
+    operands and epilogue (by default the dots themselves): the same -inf
+    pattern, and each finite score within the dots' tolerance
+    1e-5 · Σ_d |row·q| carried through the epilogue (× the int8 scale,
+    / the cosine denominator, × 2 for euclidean) plus 2 units in the last
+    place of the score (only the dots' summation order differs).  Returns
+    max |Δ| over the finite scores."""
+    import torch
+
+    ep = ep or dots_epilogue(gs, rows)
+    got = gs.gather_score(rows, bid, q, ep)
+    want = gs.gather_score_reference(rows, bid, q, ep)
+    safe = torch.clamp(bid, min=0).long()
+    tol = torch.zeros_like(want)
     for s in range(0, bid.shape[1], 4):  # Σ|row·q| in slabs of 4 blocks
-        sl = bid[:, s : s + 4].long()
-        mag[:, s : s + 4] = torch.einsum("bcpd,bd->bcp", rows[sl].float().abs(), q.abs())
+        sl = safe[:, s : s + 4]
+        tol[:, s : s + 4] = torch.einsum("bcpd,bd->bcp", rows[sl].float().abs(), q.abs())
+    tol *= 1e-5
+    if ep.scale is not None:
+        tol *= ep.scale[safe]
+    if ep.op == "cosine":
+        tol /= torch.clamp(ep.aux[safe], min=gs.EPS)
+    elif ep.op == "euclidean":
+        tol *= 2
+    tol += 2.0**-22 * want.abs()
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    assert bool((err <= 1e-5 * mag).all()), f"gather_score differs by {float(err.max())}"
-    return float(err.max())
+    dead = want == -float("inf")
+    assert torch.equal(got == -float("inf"), dead), "gather_score's -inf pattern differs"
+    err = (got - want).abs()[~dead]
+    assert bool((err <= tol[~dead]).all()), f"gather_score differs by {float(err.max())}"
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_epilogue(gs, rows, bid, q, op, seed):
+    """Kernel 3 writing the probe's scores (`op`, an int8 scale, -1 ids, -1
+    slots, a filter): bit-equal to the plain chain on its own dots, and
+    within the dots' tolerance of the plain version (`check_gather`)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nbt, p, _ = rows.shape
+    bid = bid.clone()
+    bid[torch.rand(bid.shape, generator=g).to(bid.device) < 0.1] = -1
+    slots = torch.randperm(nbt * p + 7, generator=g)[: nbt * p].view(nbt, p).to(torch.int32)
+    slots[torch.rand((nbt, p), generator=g) < 0.2] = -1
+    aux = torch.rand((nbt, p), generator=g) * 4
+    aux[torch.rand((nbt, p), generator=g) < 0.05] = 0.0
+    scale = torch.rand((nbt, p), generator=g) / 64 if rows.dtype == torch.int8 else None
+    fmask = torch.rand(nbt * p + 7, generator=g) < 0.6
+    to = (lambda t: None if t is None else t.to(rows.device))  # noqa: E731
+    ep = gs.Epilogue(op, to(aux), to(slots), to(scale), to(fmask))
+    dots = gs.gather_score(rows, torch.clamp(bid, min=0), q, dots_epilogue(gs, rows))
+    got = gs.gather_score(rows, bid, q, ep)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gs.apply_epilogue(dots, bid, ep)), \
+        f"kernel 3's {op} epilogue differs from the plain chain"
+    check_gather(gs, rows, bid, q, ep)
+
+
+#: the probe cell's stage 2 (`glove100-probe-b2048`): B, trees, blocks a
+#: tree, L, P, d
+CELL_STAGE2 = (2048, 8, 29_568, 25, 64, 100)
+
+
+def stage2_forms(gs, rows, bid, q, ep, k2, raw=None):
+    """The probe's stage 2 on a [B, C] selection, two ways, as callables
+    returning the top-k2 scores and their slots: the one pass the probe
+    runs (kernel 3 with its epilogue, `torch.topk`, the winners' slots),
+    and the parent's chain over the JAX package's chunks (the dots from
+    `raw`, by default kernel 3's "dot" op with every slot live, the
+    epilogue as PyTorch ops, a cut a chunk, one merge).  Also returns the
+    chunks."""
+    import torch
+
+    from arroy_tpu_torch import probe
+
+    b, C = bid.shape
+    dots = dots_epilogue(gs, rows)
+    raw = raw or (lambda x: gs.gather_score(rows, x, q, dots))
+    ch = probe.gather_chunk(b, rows, False)
+    chunks = [bid[:, i:i + ch].contiguous() for i in range(0, C, ch)]
+
+    def one_pass():
+        s2 = gs.gather_score(rows, bid, q, ep).view(b, -1)
+        v, i = torch.topk(s2, k2, dim=1)
+        return v, probe.winner_slots(v, i, bid, ep.slots)
+
+    def chunked():
+        parts = []
+        for x in chunks:  # the parent's cut: no topk where a chunk holds k2 or fewer
+            s2 = gs.apply_epilogue(raw(x), x, ep).view(b, -1)
+            v, i = torch.topk(s2, k2, dim=1) if k2 < s2.shape[1] else (
+                s2, torch.arange(s2.shape[1], device=s2.device).expand(b, -1))
+            parts.append((v, probe.winner_slots(v, i, x, ep.slots)))
+        v, i = torch.topk(torch.cat([v for v, _ in parts], dim=1), k2, dim=1)
+        return v, torch.gather(torch.cat([s for _, s in parts], dim=1), 1, i)
+
+    return one_pass, chunked, chunks
+
+
+def stage2_at_cell(gs, dev, rec):
+    """The probe cell's stage 2 on tables of its shape drawn on the card
+    (bf16 rows, cosine, 22% pad slots; each query's 25 blocks a tree drawn
+    at random): the block schedule against `torch.sort` of the ids; kernel
+    3's scores over the whole [B, T·L] selection against the plain version
+    (`check_gather`) and bit-equal to the plain chain on its own dots; the
+    one-pass stage 2 (kernel 3 with its epilogue, `torch.topk`, the
+    winners' slots) against the parent's 16-chunk chain (the JAX package's
+    chunks of 13 blocks a query: the dots, the epilogue as PyTorch ops, a
+    cut a chunk, one merge), the same top-k2 values; device and wall ms of
+    each, the schedule alone, and the blocks the kernel reads in one
+    schedule against 16."""
+    import torch
+
+    from arroy_tpu_torch import probe
+
+    b, T, nb, L, p, d = CELL_STAGE2
+    nbt, C, k2 = T * nb, T * L, 1024
+    g = torch.Generator(device=dev).manual_seed(24)
+    rows = torch.randn((nbt, p, d), generator=g, device=dev).to(torch.bfloat16)
+    slots = torch.arange(nbt * p, dtype=torch.int32, device=dev).view(nbt, p)
+    slots[torch.rand((nbt, p), generator=g, device=dev) < 0.22] = -1
+    ep = gs.Epilogue("cosine", torch.rand((nbt, p), generator=g, device=dev) + 0.5, slots)
+    base = (torch.arange(T, device=dev) * nb).view(1, T, 1)
+    bid = (torch.randint(0, nb, (b, T, L), generator=g, device=dev) + base).view(b, C)
+    bid = bid.to(torch.int32).contiguous()
+    q = torch.randn((b, d), generator=g, device=dev).to(torch.bfloat16).float()
+    one_pass, chunked, chunks = stage2_forms(gs, rows, bid, q, ep, k2)
+    nch, ch = len(chunks), chunks[0].shape[1]
+    assert probe.gather_chunk(b, rows, True) >= C, "the cell's stage 2 does not fit one card chunk"
+    keys, pairs = gs.block_schedule(bid, nbt)
+    flat = bid.reshape(-1)
+    assert torch.equal(keys, torch.sort(flat).values), "the schedule's ids are not sorted"
+    assert torch.equal(torch.sort(pairs).values, torch.arange(b * C, dtype=torch.int32, device=dev)) \
+        and torch.equal(flat[pairs.long()], keys), "the schedule loses or doubles pairs"
+    dots = dots_epilogue(gs, rows)
+    err = check_gather(gs, rows, bid, q, ep)
+    got = gs.gather_score(rows, bid, q, ep)
+    assert torch.equal(got, gs.apply_epilogue(gs.gather_score(rows, bid, q, dots), bid, ep)), \
+        "kernel 3's epilogue differs from the plain chain at the cell's shape"
+    assert torch.equal(one_pass()[0], chunked()[0]), "one pass and 16 chunks cut different scores"
+    del got
+    reads = gs.block_reads(keys)
+    reads_ch = sum(gs.block_reads(gs.block_schedule(x, nbt)[0]) for x in chunks)
+    uniq = int(torch.unique(bid).numel())
+    nbytes = uniq * p * (2 * d + 8) + 4 * b * (C + d + C * p)
+    r = {"shape": dict(B=b, T=T, nb_max=nb, L=L, P=p, d=d), "chunks": nch, "chunk_blocks": ch,
+         "max_abs_err": err,
+         "distinct_blocks": uniq, "reads_one_schedule": reads, "reads_chunked_schedules": reads_ch,
+         "bound_ms": nbytes / HBM_BPS * 1e3,
+         "schedule_ms": device_ms(lambda: gs.block_schedule(bid, nbt), 10),
+         "schedule_chunk_ms": device_ms(lambda: gs.block_schedule(chunks[0], nbt), 10),
+         "kernel_ms": device_ms(lambda: gs.gather_score(rows, bid, q, ep), 10),
+         "dots_kernel_ms": device_ms(lambda: gs.gather_score(rows, bid, q, dots), 10),
+         "chunk_kernels_ms": device_ms(lambda: [gs.gather_score(rows, x, q, dots) for x in chunks],
+                                       5),
+         "plain_ms": cuda_ms(lambda: gs.gather_score_reference(rows, bid, q, ep), 2),
+         "one_pass_ms": device_ms(one_pass, 5), "one_pass_wall_ms": cuda_ms(one_pass, 5),
+         "chunked_ms": device_ms(chunked, 3), "chunked_wall_ms": cuda_ms(chunked, 3)}
+    r["kernel_ms_without_schedule"] = r["kernel_ms"] - r["schedule_ms"]
+    rec["gather_score_bf16"]["stage2_cell"] = r
+    say("stage2", f"probe cell shape B={b} T={T} nb={nb} L={L} P={p} d={d} (cosine, bf16): "
+        f"{uniq} distinct blocks of {b * C} pairs; blocks read {reads} in one schedule, "
+        f"{reads_ch} in {nch} chunks of {ch}; the schedule equals torch.sort; scores within "
+        f"the dots' tolerance of the plain version (max |d| {err:.3g}) and bit-equal to the "
+        f"plain chain")
+    say("stage2", f"device ms: schedule {r['schedule_ms']:.4f} (one chunk's "
+        f"{r['schedule_chunk_ms']:.4f}), kernel 3 with its schedule and epilogue "
+        f"{r['kernel_ms']:.4f} (bound {r['bound_ms']:.4f}; dots {r['dots_kernel_ms']:.4f}, "
+        f"in {nch} chunks {r['chunk_kernels_ms']:.4f}; plain {r['plain_ms']:.2f}), one-pass stage 2 "
+        f"{r['one_pass_ms']:.4f} against the {nch}-chunk chain {r['chunked_ms']:.4f}; "
+        f"wall {r['one_pass_wall_ms']:.4f} against {r['chunked_wall_ms']:.4f}")
+    del rows, slots, ep, dots, keys, pairs
+    torch.cuda.empty_cache()
 
 
 def gather_inputs(rng, dev, nbt, p, d, b, c, dtype):
@@ -585,12 +764,21 @@ def kernel_parity(dev, rec):
         f"({4.0 * h.numel() / r['ms'] / 1e6:.0f} GB/s of output), bound {r['bound_ms']:.4f} ms, "
         f"±1 int8 GEMM {r['gemm_ms']:.4f} ms, ratio {r['ms_over_gemm']:.3f}")
     del qw, xw, h, qi, xi
-    # kernel 3 at edge shapes: C = 1, P = 64, 48 and 16, d = 768, 100 (a
-    # bf16 row of 200 bytes is not a multiple of 16) and 37 (1-byte int8
-    # loads), repeated ids and the last block id, and one block chosen by
-    # all 600 pairs (a run across 19 CTAs' slices), each scored both in
-    # query order (as calls below SCHEDULE_MIN_BYTES are) and with the
-    # pairs sorted by block
+    gather_parity(gs, dev, rng, rec)
+    for name, r in rec.items():
+        if "ms" in r:
+            say("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}")
+
+
+def gather_parity(gs, dev, rng, rec):
+    """Phase 3's kernel 3: at edge shapes (C = 1, P = 64, 48 and 16, d =
+    768, 100 (a bf16 row of 200 bytes is not a multiple of 16) and 37
+    (1-byte int8 loads), repeated ids and the last block id, and one block
+    chosen by all 600 pairs, a run across 19 CTAs' slices), each scored
+    both in query order (as calls below SCHEDULE_MIN_BYTES are) and with
+    the pairs sorted by block; then at the probe cell's shape
+    (`stage2_at_cell`)."""
     min_bytes = gs.SCHEDULE_MIN_BYTES
     for dtype in ("bf16", "int8", "f32"):
         err = 0.0
@@ -600,15 +788,16 @@ def kernel_parity(dev, rec):
             inputs = gather_inputs(rng, dev, nbt, p, d, b, c, dtype)
             for gs.SCHEDULE_MIN_BYTES in (min_bytes, 0):
                 err = max(err, check_gather(gs, *inputs))
+                for op in gs.OPS:
+                    check_epilogue(gs, *inputs, op, seed=nbt + p + d + b + c)
         gs.SCHEDULE_MIN_BYTES = min_bytes
         rec[f"gather_score_{dtype}"]["max_abs_err"] = err
         say("parity", f"gather_score_{dtype}: C=1, P=64/48/16, d=768/100/37, repeated, last "
             f"and hot ids, in query order and sorted by block: max |d| {err:.3g} within "
-            f"1e-5 * sum|row*q|")
-    for name, r in rec.items():
-        if "ms" in r:
-            say("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-                f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}")
+            f"1e-5 * sum|row*q|; the epilogue's scores ({', '.join(gs.OPS)}, -1 ids and "
+            f"slots, a filter) bit-equal to the plain chain on the kernel's dots and within "
+            f"that tolerance of the plain version")
+    stage2_at_cell(gs, dev, rec)
 
 
 class RescoreCase(NamedTuple):
@@ -1744,22 +1933,25 @@ def probe_cuts(r, batches, ref_ids):
 
 
 def time_gather(gs, served, batches, rec):
-    """Kernel 3 against its plain version, the two-call path the JAX package
-    serves, and its bound, on the [B, C] selection stage 1 made for batch 0."""
+    """Kernel 3 (with the probe's euclidean epilogue) against its plain
+    version, the two-call path the JAX package serves, and its bound, on
+    the [B, C] selection stage 1 made for batch 0."""
     import torch
 
-    from arroy_tpu_torch.probe import gather_chunk
+    from arroy_tpu_torch.probe import gather_chunk, stage2_kernel
 
     for kind, (s, sk, _, _) in served.items():
         fn = s.device_fn
         qv = s.prepare_queries(batches[0])[0]
         bid = fn.block_ids(qv).to(torch.int32).contiguous()
-        rows = fn.tables.blk_rows
+        t = fn.tables
+        rows = t.blk_rows
+        ep = gs.Epilogue("euclidean", t.blk_aux, t.blk_slots, t.blk_scale if kind == "int8" else None)
         q = (qv if kind == "f32" else qv.to(torch.bfloat16).float()).contiguous()
         r = rec[f"gather_score_{kind}"]
-        r["max_abs_err"] = max(r["max_abs_err"], check_gather(gs, rows, bid, q))
-        r["ms"] = cuda_ms(lambda: gs.gather_score(rows, bid, q), 10)
-        r["plain_ms"] = cuda_ms(lambda: gs.gather_score_reference(rows, bid, q), 3)
+        r["max_abs_err"] = max(r["max_abs_err"], check_gather(gs, rows, bid, q, ep))
+        r["ms"] = cuda_ms(lambda: gs.gather_score(rows, bid, q, ep), 10)
+        r["plain_ms"] = cuda_ms(lambda: gs.gather_score_reference(rows, bid, q, ep), 3)
         bl = bid.long()
         if kind == "f32":
             lib = lambda: torch.einsum("bcpd,bd->bcp", rows[bl], q)
@@ -1781,11 +1973,13 @@ def time_gather(gs, served, batches, rec):
             f"library {r['library_ms']:.3f} ms ({r['library']}), bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), max |d| {r['max_abs_err']:.3g}")
         # reuse: distinct blocks over pairs for the whole C and for the
-        # probe's own chunks of C, and the blocks the kernel reads (once
-        # per run of a block within each CTA's slice of the schedule, or
-        # once a pair in a call too small to be sorted)
+        # JAX package's chunks of C (which the probe took on the card
+        # before kernel 3 wrote the scores), and the blocks the kernel
+        # reads (once per run of a block within each CTA's slice of the
+        # schedule, or once a pair in a call too small to be sorted)
         blk_bytes = p * d * rows.element_size()
-        ch = gather_chunk(b, rows)
+        assert gather_chunk(b, rows, stage2_kernel(rows)) >= c, "phase 6's stage 2 is chunked"
+        ch = gather_chunk(b, rows, False)
         chunks = [bid[:, i:i + ch].contiguous() for i in range(0, c, ch)]
         uniq_ch = sum(int(torch.unique(x).numel()) for x in chunks)
 
@@ -1798,15 +1992,15 @@ def time_gather(gs, served, batches, rec):
         r["distinct_share"] = uniq / (b * c)
         r["chunk_distinct_share"] = uniq_ch / (b * c)
         r["schedule_ms"] = device_ms(lambda: gs.block_schedule(bid, rows.shape[0]), 10)
-        r["chunked_ms"] = cuda_ms(lambda: [gs.gather_score(rows, x, q) for x in chunks], 10)
+        r["chunked_ms"] = cuda_ms(lambda: [gs.gather_score(rows, x, q, ep) for x in chunks], 10)
         say("kernel3", f"gather_score_{kind} reuse: {uniq} distinct blocks of {b * c} pairs "
-            f"(share {r['distinct_share']:.4f}); in the probe's {len(chunks)} chunks of {ch} "
+            f"(share {r['distinct_share']:.4f}); in the JAX package's {len(chunks)} chunks of {ch} "
             f"blocks a query {uniq_ch} (share {r['chunk_distinct_share']:.4f}); blocks the kernel "
             f"reads: {reads} whole, {reads_ch} chunked")
         say("kernel3", f"gather_score_{kind} rates: {b * c * blk_bytes / r['ms'] / 1e6:.0f} GB/s "
             f"of total row bytes, {uniq * blk_bytes / r['ms'] / 1e6:.0f} GB/s of distinct ones, "
             f"{reads * blk_bytes / r['ms'] / 1e6:.0f} GB/s of the blocks it reads; the schedule "
-            f"alone {r['schedule_ms']:.4f} ms on the device; the probe's {len(chunks)} chunked "
+            f"alone {r['schedule_ms']:.4f} ms on the device; the JAX package's {len(chunks)} chunked "
             f"calls {r['chunked_ms']:.3f} ms (sorted by block where a chunk gathers "
             f"{gs.SCHEDULE_MIN_BYTES >> 20} MiB or more)")
 
@@ -3085,6 +3279,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    from arroy_tpu_torch import probe
     from arroy_tpu_torch.ops import _build, bq_kernels as bk, fused_select as fs, gather_score as gs
     from arroy_tpu_torch.ops import rank_select as rk, rescore as rs, traverse as tv
 
@@ -3185,10 +3380,13 @@ def main() -> int:
     for c in (gs.launches, rs.launches, rk.launches, rk.plain_calls):
         for k in c:
             c[k] = 0
+    probe.chunked_calls = 0
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         served, pbatches = probe_slice(tmp)
         probe_launches = {**gs.launches, **rk.launches}
+        assert probe.chunked_calls == 0, f"{probe.chunked_calls} stage-2 calls took chunks"
+        rec["gather_score_bf16"]["phase6_chunked_calls"] = probe.chunked_calls
         say("launches", f"probe path: {json.dumps({**probe_launches, **rs.launches, **rk.plain_calls})}")
         assert rs.launches["rescore_topk"] > 0, "kernel 5 never launched on the probe path"
         rec["rescore_topk"]["phase6_launches"] = rs.launches["rescore_topk"]

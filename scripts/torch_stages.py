@@ -24,8 +24,9 @@ Then, on the cell's request schedule:
 
 Least times, at the HBM rate of `benchmark.kernels` (3.35 TB/s) and, for
 kernel 6, the f32 FFMA peak (`F32_PEAK`), whichever is larger:
-kernel 3 reads the distinct blocks, `bid`, the queries and writes the
-[B, C, P] f32 scores; kernel 4 takes the larger of its longest query's
+kernel 3 reads the distinct blocks (with its epilogue, each row's aux
+and slot, an int8 scale and a filter byte beside them), `bid`, the
+queries and writes the [B, C, P] f32 scores; kernel 4 takes the larger of its longest query's
 pops times one dependent L2 read (`L2_READ_S`) and the node rows and
 margins its pops touch; kernel 5 reads the distinct valid rows (row,
 norm, id), the keys and positions (cut) or the candidate list and mask,
@@ -76,7 +77,11 @@ def least_seconds(w: dict) -> float:
     """The least time of one call with work record `w`."""
     if w["kernel"] == "gather_score":
         b, c, p, d = w["B"], w["C"], w["P"], w["d"]
-        nbytes = w["blocks"] * p * d * w["elem_bytes"] + 4 * b * c + 4 * b * d + 4 * b * c * p
+        per_block = p * d * w["elem_bytes"]
+        ep = w.get("epilogue")
+        if ep:  # aux and slots, a scale, a filter byte a row
+            per_block += p * (8 + 4 * ep["scale"] + ep["filtered"])
+        nbytes = w["blocks"] * per_block + 4 * b * c + 4 * b * d + 4 * b * c * p
         return nbytes / kernels.HBM_BPS
     if w["kernel"] == "traverse":
         return max(w["pops_max"] * L2_READ_S, w["pops_total"] * POP_BYTES / kernels.HBM_BPS)

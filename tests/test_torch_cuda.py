@@ -29,7 +29,7 @@ from arroy_tpu_torch.ops import gather_score as gs
 from arroy_tpu_torch.ops.fused_select import DEAD_KEY_MAX, fused_block_select
 
 from . import torch_golden
-from .torch_util import recall, require_cuda, tie_aware_equal, to_torch
+from .torch_util import dots_epilogue, recall, require_cuda, tie_aware_equal, to_torch
 
 pytestmark = pytest.mark.gpu
 
@@ -208,9 +208,10 @@ def test_cuda_gather_score_matches_plain(dtype, nbt, p, d, b, c):
     dev = require_cuda()
     rows, bid, q = _gather_inputs(dev, nbt, p, d, b, c, dtype)
     name = f"gather_score_{dtype}"
+    ep = dots_epilogue(rows)
     n0 = gs.launches[name]
-    got = gs.gather_score(rows, bid, q)
-    want = gs.gather_score_reference(rows, bid, q)
+    got = gs.gather_score(rows, bid, q, ep)
+    want = gs.gather_score_reference(rows, bid, q, ep)
     torch.cuda.synchronize()
     assert got.shape == (b, c, p) and got.dtype == torch.float32
     assert gs.launches[name] == n0 + (1 if b and c else 0)
@@ -226,11 +227,13 @@ def gather_order(request, monkeypatch):
 
 
 def _check_gather(rows, bid, q):
-    """One launch, and every output within the tolerance of the plain version."""
+    """One launch, and every dot (the "dot" op's score, every slot live)
+    within the tolerance of the plain version."""
     name = gs._ROW_TYPES[rows.dtype][1]
+    ep = dots_epilogue(rows)
     n0 = gs.launches[name]
-    got = gs.gather_score(rows, bid, q)
-    want = gs.gather_score_reference(rows, bid, q)
+    got = gs.gather_score(rows, bid, q, ep)
+    want = gs.gather_score_reference(rows, bid, q, ep)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == torch.float32
     assert gs.launches[name] == n0 + (1 if got.numel() else 0)
@@ -288,8 +291,8 @@ def test_cuda_gather_score_unaligned(dtype, offset, gather_order):
 
 @pytest.mark.parametrize("n,nbt", [(1, 1), (31, 5), (18_432, 34_888), (5_000, 120_000), (70_000, 300)])
 def test_cuda_gather_schedule_sorts_every_pair_once(n, nbt):
-    """The schedule kernel: ids sorted, every pair once, each id its pair's
-    own; past 53,248 blocks it counts in several passes."""
+    """The schedule kernels: ids sorted, every pair once, each id its
+    pair's own; past 4,096 blocks the scan takes several tiles."""
     dev = require_cuda()
     bid = torch.from_numpy(np.random.default_rng(n).integers(nbt, size=n).astype(np.int32)).to(dev)
     keys, pairs = gs.block_schedule(bid.view(1, n), nbt)
@@ -299,7 +302,7 @@ def test_cuda_gather_schedule_sorts_every_pair_once(n, nbt):
 
 
 def test_cuda_gather_score_many_blocks(gather_order):
-    """60,000 blocks: the schedule's counting sort takes two passes."""
+    """60,000 blocks: the schedule's scan takes 15 tiles."""
     dev = require_cuda()
     _check_gather(*_gather_inputs(dev, 60_000, 16, 37, 64, 50, "int8", seed=9))
 
@@ -307,14 +310,15 @@ def test_cuda_gather_score_many_blocks(gather_order):
 def test_cuda_gather_score_rejects_bad_inputs():
     dev = require_cuda()
     rows, bid, q = _gather_inputs(dev, 8, 16, 64, 2, 3, "bf16")
+    ep = dots_epilogue(rows)
     with pytest.raises(TypeError):
-        gs.gather_score(rows.to(torch.float16), bid, q)
+        gs.gather_score(rows.to(torch.float16), bid, q, ep)
     with pytest.raises(TypeError):
-        gs.gather_score(rows, bid.long(), q)
+        gs.gather_score(rows, bid.long(), q, ep)
     with pytest.raises(ValueError):
-        gs.gather_score(rows, bid, q[:, :32].contiguous())
+        gs.gather_score(rows, bid, q[:, :32].contiguous(), ep)
     with pytest.raises(ValueError):
-        gs.gather_score(rows, bid.t(), q)
+        gs.gather_score(rows, bid.t(), q, ep)
 
 
 def test_cuda_probe_searcher_runs_gather_score(tmp_path):
@@ -340,6 +344,131 @@ def test_cuda_probe_searcher_runs_gather_score(tmp_path):
     ids, d = (np.array([[p[j] for p in row] for row in got]) for j in (0, 1))
     rids, rd = (np.array([[p[j] for p in row] for row in ref]) for j in (0, 1))
     assert recall(ids, rids) >= 0.99
+
+
+
+def _epilogue_inputs(dev, dtype, op, filtered, nbt=90, p=48, d=100, b=37, c=11, seed=0):
+    """Rows, ids [b, c] with -1 pads (a whole query's tail and scattered
+    ids), f32 queries, and an `Epilogue` whose slots hold -1 pads (a whole
+    block and scattered rows), positive aux terms with some zeros, int8
+    scales, and a filter over the slots."""
+    rows, bid, q = _gather_inputs(dev, nbt, p, d, b, c, dtype, seed=seed, round_q=dtype != "f32")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bid[0, c // 2:] = -1
+    bid[torch.rand((b, c), generator=g).to(dev) < 0.1] = -1
+    cap = nbt * p + 5
+    slots = torch.randperm(cap, generator=g)[: nbt * p].view(nbt, p).to(torch.int32)
+    slots[torch.rand((nbt, p), generator=g) < 0.15] = -1
+    slots[3] = -1
+    aux = torch.rand((nbt, p), generator=g) * 4
+    aux[torch.rand((nbt, p), generator=g) < 0.05] = 0.0
+    scale = torch.rand((nbt, p), generator=g) / 64 if dtype == "int8" else None
+    fmask = torch.rand(cap, generator=g) < 0.6 if filtered else None
+    to = (lambda t: None if t is None else t.to(dev))  # noqa: E731
+    return rows, bid, q, gs.Epilogue(op, aux.to(dev), slots.to(dev), to(scale), to(fmask))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("op", ["cosine", "euclidean", "dot"])
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("d", [100, 1536])
+def test_cuda_gather_score_epilogue_bit_equal(dtype, op, filtered, d, gather_order):
+    """Kernel 3 writing the score is bit-equal to the plain chain
+    (`apply_epilogue`: the int8 scale, the op, the masks, each an f32 op of
+    its own) run on its dots (the "dot" op, every slot live): -1 ids, -1
+    slots and filtered slots
+    -inf, every other score the chain's to the last bit; d = 1536 scores
+    a row in two chunks of d, the epilogue after the last."""
+    dev = require_cuda()
+    rows, bid, q, ep = _epilogue_inputs(dev, dtype, op, filtered, d=d, seed=d + len(op))
+    name = gs._ROW_TYPES[rows.dtype][1]
+    raw = gs.gather_score(rows, torch.clamp(bid, min=0), q, dots_epilogue(rows))
+    want = gs.apply_epilogue(raw, bid, ep)
+    n0 = gs.launches[name]
+    got = gs.gather_score(rows, bid, q, ep)
+    torch.cuda.synchronize()
+    assert gs.launches[name] == n0 + 1
+    assert torch.equal(got, want)
+    dead = ~torch.isfinite(want)
+    assert bool(dead[0, bid.shape[1] // 2:].all()) and 0 < int(dead.sum()) < want.numel()
+
+
+def test_cuda_gather_score_epilogue_matches_the_cpu_chain():
+    """The same rows, ids and epilogue on the CPU (the plain version) and
+    on the card: the same -inf pattern, the scores within the dots'
+    tolerance (only the summation order of the dots differs)."""
+    dev = require_cuda()
+    rows, bid, q, ep = _epilogue_inputs(dev, "bf16", "euclidean", True)
+    got = gs.gather_score(rows, bid, q, ep).cpu()
+    cpu = gs.Epilogue(ep.op, *(t.cpu() for t in (ep.aux, ep.slots)), None, ep.fmask.cpu())
+    want = gs.gather_score(rows.cpu(), bid.cpu(), q.cpu(), cpu)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    live = torch.isfinite(want)
+    bound = 2 * _gather_bound(rows, torch.clamp(bid, min=0), q).cpu() + 1e-6
+    assert bool(((got - want).abs()[live] <= bound[live]).all())
+
+
+def test_cuda_gather_score_rejects_bad_epilogues():
+    dev = require_cuda()
+    rows, bid, q, ep = _epilogue_inputs(dev, "bf16", "cosine", True)
+    with pytest.raises(ValueError):
+        gs.gather_score(rows, bid, q, gs.Epilogue("manhattan", ep.aux, ep.slots))
+    with pytest.raises(ValueError):
+        gs.gather_score(rows, bid, q, gs.Epilogue("cosine", ep.aux.double(), ep.slots))
+    with pytest.raises(ValueError):
+        gs.gather_score(rows, bid, q, gs.Epilogue("cosine", ep.aux, ep.slots[:-1].contiguous()))
+    with pytest.raises(ValueError):
+        gs.gather_score(rows, bid, q, gs.Epilogue("cosine", ep.aux, ep.slots, fmask=ep.fmask.cpu()))
+    with pytest.raises(ValueError):
+        gs.gather_score(rows, bid, q, gs.Epilogue("cosine", ep.aux, None))
+
+
+@pytest.mark.parametrize("pads", [0, 5_000])
+def test_cuda_block_schedule_at_the_probe_cell(pads):
+    """The many-CTA schedule at the probe cell's one-pass shape (409,600
+    pairs over 236,544 blocks, past the 53,248 bins of the one-CTA pass it
+    replaced): every pair once, sorted by block, each id its pair's own;
+    -1 pads go last."""
+    dev = require_cuda()
+    n, nbt = 409_600, 236_544
+    bid = torch.from_numpy(np.random.default_rng(7).integers(nbt, size=n).astype(np.int32)).to(dev)
+    bid[torch.randperm(n, device=dev)[:pads]] = -1
+    keys, pairs = gs.block_schedule(bid.view(2048, 200), nbt)
+    valid = torch.sort(bid[bid >= 0]).values
+    assert torch.equal(keys[: n - pads], valid) and bool((keys[n - pads:] == -1).all())
+    assert torch.equal(torch.sort(pairs).values, torch.arange(n, dtype=torch.int32, device=dev))
+    assert torch.equal(bid[pairs.long()], keys)
+
+
+def test_cuda_probe_one_pass_equals_the_chunked_stage2(monkeypatch):
+    """The probe at B = 2048, search_k 8000 (8 trees of 64-slot blocks):
+    its stage 2 is one launch of kernel 3 a batch and no chunked call;
+    with `PROBE_GATHER_BYTES` lowered so the card's rule cuts it into
+    chunks (counted in `chunked_calls`, a launch a chunk), the ids and
+    distances are the same up to ties."""
+    from arroy_tpu_torch import probe
+
+    dev = require_cuda()
+    r, x = _probe_cell_index(dev)
+    kw = dict(search_k=8000, engine="forest", traversal="probe", probe_trees=8, probe_block=64)
+    s = r.searcher(10, **kw)
+    assert s.route == "probe"
+    q = x[:2048] + 0.05 * np.random.default_rng(3).standard_normal((2048, 32)).astype(np.float32)
+    dq = s.prepare_queries(q)
+    t = s.device_fn.tables
+    C = t.n_trees * s.device_fn.L
+    assert probe.gather_chunk(2048, t.blk_rows, True) >= C
+    n0, c0 = gs.launches["gather_score_bf16"], probe.chunked_calls
+    one = _result_arrays(s.device_fn(*dq))
+    assert gs.launches["gather_score_bf16"] == n0 + 1 and probe.chunked_calls == c0
+    per_query = 2048 * (4 * t.block + 8)
+    monkeypatch.setattr(probe, "PROBE_GATHER_BYTES",
+                        4 * gs.schedule_words(0, t.blk_rows.shape[0]) + per_query * (C // 7))
+    nch = -(-C // probe.gather_chunk(2048, t.blk_rows, True))
+    assert nch >= 7
+    chunked = _result_arrays(s.device_fn(*dq))
+    assert gs.launches["gather_score_bf16"] == n0 + 1 + nch and probe.chunked_calls == c0 + 1
+    tie_aware_equal(*one, *chunked, rtol=1e-5, atol=1e-6)
 
 
 def _traversal_pair(tmp_path, metric="euclidean", m=6000, d=48):

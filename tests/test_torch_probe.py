@@ -27,7 +27,7 @@ from arroy_tpu_torch import search as t_search
 from arroy_tpu_torch.ops import gather_score as t_gs
 from arroy_tpu_torch.ops.gather_score import gather_score, gather_score_reference
 
-from .torch_util import tie_aware_equal
+from .torch_util import dots_epilogue, tie_aware_equal
 
 M, DIM, TREES, K = 2000, 32, 6, 10
 PROBE = dict(engine="forest", traversal="probe", probe_trees=4, probe_block=16)
@@ -107,8 +107,9 @@ def test_gather_score_reference_matches_pallas(dtype):
         jx = xf
         tx = torch.from_numpy(xf)
     want = np.asarray(j_gather_score(jnp.asarray(jx), jnp.asarray(bid), jnp.asarray(q), interpret=True))
-    got = gather_score(tx, torch.from_numpy(bid), torch.from_numpy(q)).numpy()
-    np.testing.assert_array_equal(got, gather_score_reference(tx, torch.from_numpy(bid), torch.from_numpy(q)).numpy())
+    ep = dots_epilogue(tx)
+    got = gather_score(tx, torch.from_numpy(bid), torch.from_numpy(q), ep).numpy()
+    np.testing.assert_array_equal(got, gather_score_reference(tx, torch.from_numpy(bid), torch.from_numpy(q), ep).numpy())
     rows = np.asarray(jx, np.float32)[bid]  # [b, c, p, d]
     mag = np.einsum("bcpd,bd->bcp", np.abs(rows), np.abs(q))
     assert got.shape == (b, c, p)

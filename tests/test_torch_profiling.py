@@ -21,6 +21,8 @@ from arroy_tpu_torch.ops import gather_score, rescore, traverse
 from arroy_tpu_torch.ops.fused_select import DEAD_KEY_MAX
 from arroy_tpu_torch.utils import profiling
 
+from .torch_util import dots_epilogue
+
 #: 4,400 items: the fused route needs 32 select blocks of 256 (4,096+)
 N, DIM, TREES, K = 4400, 16, 4, 10
 SEARCHERS = {
@@ -160,11 +162,20 @@ def test_recording_returns_the_setup_spans():
 
 
 def test_gather_score_work_counts_distinct_blocks():
+    """The distinct ids in [0, NBT) (a -1 pad is no block), the request's
+    stage-2 chunks, and the epilogue: its op and whether a scale and a
+    filter apply."""
     rows = torch.zeros((10, 4, 8), dtype=torch.bfloat16)
     bid = torch.tensor([[0, 3, 3], [9, 0, 1]], dtype=torch.int32)
-    assert gather_score.work(rows, bid) == {
+    assert gather_score.work(rows, bid, dots_epilogue(rows)) == {
         "kernel": "gather_score", "B": 2, "C": 3, "P": 4, "d": 8, "dtype": "bfloat16",
-        "elem_bytes": 2, "blocks": 4}
+        "elem_bytes": 2, "blocks": 4, "chunks": 1,
+        "epilogue": {"op": "dot", "scale": False, "filtered": False}}
+    ep = gather_score.Epilogue("cosine", torch.zeros(10, 4), torch.zeros((10, 4), dtype=torch.int32),
+                               fmask=torch.ones(6, dtype=torch.bool))
+    w = gather_score.work(rows, torch.tensor([[0, -1, 3], [9, 0, -1]], dtype=torch.int32), ep, 3)
+    assert (w["blocks"], w["chunks"]) == (3, 3)
+    assert w["epilogue"] == {"op": "cosine", "scale": False, "filtered": True}
 
 
 def test_traverse_work_counts_pops():

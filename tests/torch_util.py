@@ -41,6 +41,17 @@ def to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def dots_epilogue(blk_rows: torch.Tensor):
+    """Kernel 3's epilogue whose scores are the dots themselves: the "dot"
+    op, every slot live, no scale, no filter."""
+    from arroy_tpu_torch.ops.gather_score import Epilogue
+
+    nbt, p, _ = blk_rows.shape
+    dev = blk_rows.device
+    return Epilogue("dot", torch.zeros((nbt, p), device=dev),
+                    torch.arange(nbt * p, dtype=torch.int32, device=dev).view(nbt, p))
+
+
 def tie_aware_equal(ids_a, d_a, ids_b, d_b, rtol=1e-6, atol=0.0):
     """Sorted distance rows agree within the tolerance, and ids are equal
     wherever a distance is strictly unique (within the tolerance) in the
